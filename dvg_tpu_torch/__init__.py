@@ -1,0 +1,18 @@
+"""dvg_tpu_torch: the PyTorch / CUDA port of dvg_tpu for NVIDIA Hopper (H100).
+
+The JAX package `dvg_tpu` beside it is the reference this port is held
+against; the port imports torch and never jax, nor anything of `dvg_tpu`.
+Its layout follows `dvg_tpu`'s, so each module's counterpart sits at the
+same path. Entry points run on the card (`device="cuda"`) unless the caller
+asks for the CPU, and raise where there is no card. Public tensors keep the
+JAX package's layouts: NHWC images, (T, B, H, W, C) clips and
+(S, n_free, B) metrics.
+
+Ported so far: the diverse-generation eval of DCGAN-64
+(`generate.rollout.make_rollout_fns(...).diverse_metrics`) with its
+hand-written CUDA metric kernel (`ops/ssim_cuda.py`, `csrc/ssim_cyclic.cu`).
+"""
+
+__version__ = "0.1.0"
+
+from dvg_tpu_torch.config import DVGConfig, resolve_device  # noqa: F401,E402

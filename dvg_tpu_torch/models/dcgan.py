@@ -1,0 +1,121 @@
+"""DCGAN-64 encoder and decoder (counterpart of `dvg_tpu/models/dcgan.py`,
+64 px only).
+
+  * encoder: four stride-2 4×4 conv+BN+LeakyReLU(0.2) stages halving the
+    resolution, then a 4×4 valid conv+BN+tanh head (4×4 → 1×1 → g_dim);
+    the stage outputs are the U-Net skips.
+  * decoder: a transposed-conv head 1×1 → 4×4, then stride-2 4×4 upconv
+    stages each consuming cat([d, skip]), and a final transposed conv with
+    tanh.
+
+Every function here takes and returns NHWC tensors; inside, the convs run
+on NCHW-shaped channels_last views of the same memory.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dvg_tpu_torch.models import layers as L
+
+NF = 64
+ENCODER_CHANNELS = [(NF, NF * 2), (NF * 2, NF * 4), (NF * 4, NF * 8)]
+DECODER_CHANNELS = [(NF * 8 * 2, NF * 4), (NF * 4 * 2, NF * 2),
+                    (NF * 2 * 2, NF)]
+
+
+class Encoder(nn.Module):
+    def __init__(self, dim: int, nc: int):
+        super().__init__()
+        chans = [(nc, NF)] + ENCODER_CHANNELS
+        self.stages = nn.ModuleList(L.conv_block(ci, co, 4, 2, 1)
+                                    for ci, co in chans)
+        self.head = L.conv_block(NF * 8, dim, 4, 1, 0)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x (B, H, W, C) → (h (B, dim), skips: per-stage NHWC maps)."""
+        h = L.nchw(x)
+        skips = []
+        for stage in self.stages:
+            h = L.leaky_relu(stage(h))
+            skips.append(L.nhwc(h))
+        h = torch.tanh(self.head(h))
+        return h.reshape(h.shape[0], -1), skips
+
+    def fold_(self) -> None:
+        """Fold every eval-mode BN into its conv, in place."""
+        self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
+        self.head = L.fold_conv_bn(self.head)
+
+
+class Decoder(nn.Module):
+    def __init__(self, dim: int, nc: int):
+        super().__init__()
+        self.head = L.upconv_block(dim, NF * 8, 4, 1, 0)
+        self.stages = nn.ModuleList(L.upconv_block(ci, co, 4, 2, 1)
+                                    for ci, co in DECODER_CHANNELS)
+        self.final = nn.ConvTranspose2d(NF * 2, nc, 4, 2, 1)
+
+    def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
+                ) -> torch.Tensor:
+        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc)."""
+        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        for stage, skip in zip(self.stages, reversed(skips)):
+            d = L.leaky_relu(stage(torch.cat([d, L.nchw(skip)], dim=1)))
+        out = self.final(torch.cat([d, L.nchw(skips[0])], dim=1))
+        return L.nhwc(torch.tanh(out))
+
+    def fold_(self) -> None:
+        """Fold every eval-mode BN into its conv, in place (the final
+        transposed conv has no BN)."""
+        self.head = L.fold_conv_bn(self.head)
+        self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
+
+    def _weights(self):
+        """(weight, bias) of every stage after the head, then the final —
+        one per skip, deepest skip first."""
+        return ([(s.conv.weight, s.conv.bias) for s in self.stages]
+                + [(self.final.weight, self.final.bias)])
+
+    def skip_pre(self, skips: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Skip-half transposed-conv contribution of every stage for a
+        FROZEN skip set (the skips stay at the last context frame for the
+        whole free run), computed once instead of at every step: by
+        linearity convT(cat(d, s), W) = convT(d, W[:c_d]) + convT(s, W[c_d:]),
+        input channels being dim 0 of a ConvTranspose2d weight. Entries
+        follow `hoisted`'s stage order; each keeps the skips' batch."""
+        outs = []
+        for (w, _), skip in zip(self._weights(), reversed(skips)):
+            c_s = skip.shape[-1]
+            outs.append(L.nhwc(F.conv_transpose2d(
+                L.nchw(skip), w[w.shape[0] - c_s:], None, 2, 1)))
+        return outs
+
+    def hoisted(self, vec: torch.Tensor, skip_pre: List[torch.Tensor]
+                ) -> torch.Tensor:
+        """Eval decode against `skip_pre`'s precomputed halves. Needs a
+        BN-folded decoder (`fold_`) and each pre at vec's batch: the merged
+        sample·batch caller tiles the pre ONCE before its loop. In bf16
+        each half rounds to bf16 before the sum, as in the JAX package."""
+        if self.head.bn is not None:
+            raise ValueError(
+                "decoder hoisted decode requires BN-folded params — call "
+                "model.fold_inference_params() first")
+        if skip_pre[0].shape[0] != vec.shape[0]:
+            raise ValueError(
+                f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
+                f"latent batch {vec.shape[0]}; tile the pre to the latent "
+                "batch once, outside the loop")
+        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        weights = self._weights()
+        for (w, b), pre in zip(weights[:-1], skip_pre[:-1]):
+            y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
+            d = L.leaky_relu(y + L.nchw(pre) + b[:, None, None])
+        w, b = weights[-1]
+        y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
+        return L.nhwc(torch.tanh(y + L.nchw(skip_pre[-1]) + b[:, None, None]))

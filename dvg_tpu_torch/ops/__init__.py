@@ -1,0 +1,2 @@
+"""Metric ops of the port: plain PyTorch versions and hand-written CUDA
+kernels."""

@@ -1,0 +1,160 @@
+"""SSIM / PSNR / MSE in plain PyTorch (counterpart of `dvg_tpu/ops/ssim.py`)
+and the plain version of the cyclic metric kernel K1
+(`dvg_tpu/ops/pallas_ssim.py::_kernel_pre`).
+
+skimage ≤0.17 compare_ssim / compare_psnr semantics for float images:
+uniform 7×7 window, unbiased local covariances (cov_norm = 49/48),
+data_range 2.0, C1 = (0.01·2)², C2 = (0.03·2)², and
+PSNR = 10·log10(4 / max(mse, 1e-12)). Multi-channel images are scored per
+(image, channel) and averaged over channels, so PSNR is the mean of the
+per-channel PSNRs.
+
+`ssim_psnr_cyclic_plain` is what the CPU path runs and what the card's
+kernel (ops/ssim_cuda.py) is held against.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+DATA_RANGE = 2.0
+WIN = 7
+C1 = (0.01 * DATA_RANGE) ** 2
+C2 = (0.03 * DATA_RANGE) ** 2
+
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def box(x: torch.Tensor, win: int = WIN) -> torch.Tensor:
+    """Uniform-window VALID mean over the last two axes: (..., H, W) →
+    (..., H−win+1, W−win+1)."""
+    lead = x.shape[:-2]
+    y = F.avg_pool2d(x.reshape((-1, 1) + x.shape[-2:]), win, stride=1)
+    return y.reshape(lead + y.shape[-2:])
+
+
+def _ssim_map(ux, uy, vx, vy, vxy) -> torch.Tensor:
+    return ((2.0 * ux * uy + C1) * (2.0 * vxy + C2)
+            / ((ux * ux + uy * uy + C1) * (vx + vy + C2)))
+
+
+def _psnr(mse: torch.Tensor) -> torch.Tensor:
+    return 10.0 * torch.log10(DATA_RANGE ** 2 / torch.clamp(mse, min=1e-12))
+
+
+def _cov_norm(win: int) -> float:
+    n = win * win
+    return n / (n - 1.0)
+
+
+# ---------------------------------------------------------------------------
+# per-image metrics (2-D single channel)
+# ---------------------------------------------------------------------------
+
+def ssim(gt: torch.Tensor, pred: torch.Tensor, win_size: int = WIN,
+         data_range: Optional[float] = DATA_RANGE) -> torch.Tensor:
+    """skimage compare_ssim of one (H, W) pair; `data_range=None` takes the
+    gt's own max − min span."""
+    gt, pred = gt.float(), pred.float()
+    if data_range is None:
+        data_range = torch.clamp(gt.max() - gt.min(), min=1e-6)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    cov = _cov_norm(win_size)
+    ux, uy = box(gt, win_size), box(pred, win_size)
+    vx = cov * (box(gt * gt, win_size) - ux * ux)
+    vy = cov * (box(pred * pred, win_size) - uy * uy)
+    vxy = cov * (box(gt * pred, win_size) - ux * uy)
+    return torch.mean((2.0 * ux * uy + c1) * (2.0 * vxy + c2)
+                      / ((ux * ux + uy * uy + c1) * (vx + vy + c2)))
+
+
+def psnr(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return _psnr(torch.mean((gt.float() - pred.float()) ** 2))
+
+
+# ---------------------------------------------------------------------------
+# batched NHWC metrics
+# ---------------------------------------------------------------------------
+
+def ssim_gt_precompute(gt: torch.Tensor, win_size: int = WIN
+                       ) -> Dict[str, torch.Tensor]:
+    """Ground-truth side of the batched metric for (B, H, W, C) frames: the
+    windowed mean and second moment, per (image, channel) plane."""
+    g = gt.float().permute(0, 3, 1, 2)
+    return {"ux": box(g, win_size), "uxx": box(g * g, win_size), "gt": g}
+
+
+def ssim_psnr_batch_pre(pre: Dict[str, torch.Tensor], pred: torch.Tensor,
+                        win_size: int = WIN
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`ssim_psnr_batch` with the gt side precomputed
+    (`ssim_gt_precompute`) → ((B,), (B,)) channel-averaged."""
+    g, ux, uxx = pre["gt"], pre["ux"], pre["uxx"]
+    p = pred.float().permute(0, 3, 1, 2)
+    cov = _cov_norm(win_size)
+    uy = box(p, win_size)
+    vx = cov * (uxx - ux * ux)
+    vy = cov * (box(p * p, win_size) - uy * uy)
+    vxy = cov * (box(g * p, win_size) - ux * uy)
+    ssim_b = _ssim_map(ux, uy, vx, vy, vxy).mean(dim=(1, 2, 3))
+    mse_bc = ((g - p) ** 2).mean(dim=(2, 3))
+    return ssim_b, _psnr(mse_bc).mean(dim=1)
+
+
+def ssim_psnr_batch(gt: torch.Tensor, pred: torch.Tensor,
+                    win_size: int = WIN) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Channel-averaged SSIM and PSNR of (B, H, W, C) pairs → ((B,), (B,))."""
+    return ssim_psnr_batch_pre(ssim_gt_precompute(gt, win_size), pred,
+                               win_size)
+
+
+# ---------------------------------------------------------------------------
+# K1: the cyclic-gt metric, plain version
+# ---------------------------------------------------------------------------
+
+def gt_box_moments(gt: torch.Tensor) -> Triple:
+    """Precompute of the cyclic kernel's gt side for gt (B, H, W, C):
+    the per-plane mean mg (B·C,), box(gt − mg) and box((gt − mg)²), each
+    (B·C, H', W'), all f32 and contiguous with plane index b·C + c.
+    The kernel centres gt with this same mg."""
+    b, h, w, c = gt.shape
+    g = gt.float().permute(0, 3, 1, 2).reshape(b * c, h, w)
+    mg = g.mean(dim=(1, 2))
+    gc = g - mg[:, None, None]
+    return mg.contiguous(), box(gc).contiguous(), box(gc * gc).contiguous()
+
+
+def ssim_psnr_cyclic_plain(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
+    """Per-image metrics in the diverse layout: gt (B, H, W, C), pred
+    (S·B, H, W, C) sample-major, so pred row p scores against gt row p % B.
+    Returns (ssim, psnr, mse), each (S·B,) f32 and averaged over channels.
+
+    The same arithmetic as the kernel: centred moments (gt centred by
+    `gt_box_moments`' mean, pred by its own), box(pc), box(pc²), box(gc·pc)
+    on the pred side, the precomputed box(gc), box(gc²) on the gt side,
+    and the direct Σ(g − p)² MSE."""
+    b, h, w, c = gt.shape
+    n = pred.shape[0]
+    if n % b:
+        raise ValueError(f"pred rows {n} are not a multiple of gt rows {b}")
+    mg, gux, gxx = gt_box_moments(gt)
+    shape = (b, c, h, w)
+    g = gt.float().permute(0, 3, 1, 2)                      # (B, C, H, W)
+    p = pred.float().permute(0, 3, 1, 2).reshape((n // b,) + shape)
+    mg = mg.reshape(b, c, 1, 1)
+    gux = gux.reshape(b, c, h - WIN + 1, w - WIN + 1)
+    gxx = gxx.reshape(b, c, h - WIN + 1, w - WIN + 1)
+    mp = p.mean(dim=(-2, -1), keepdim=True)
+    gc, pc = g - mg, p - mp
+    buy, byy, bxy = box(pc), box(pc * pc), box(gc * pc)
+    cov = _cov_norm(WIN)
+    s_map = _ssim_map(gux + mg, buy + mp, cov * (gxx - gux * gux),
+                      cov * (byy - buy * buy), cov * (bxy - gux * buy))
+    ssim_v = s_map.mean(dim=(-2, -1))                       # (S, B, C)
+    mse = ((g - p) ** 2).mean(dim=(-2, -1))
+    return (ssim_v.mean(-1).reshape(n), _psnr(mse).mean(-1).reshape(n),
+            mse.mean(-1).reshape(n))

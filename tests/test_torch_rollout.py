@@ -1,0 +1,234 @@
+"""Port parity for the slice as a whole: `dvg_tpu_torch`'s diverse_metrics
+against `dvg_tpu`'s `make_rollout_fns(model, cfg).diverse_metrics` with
+`use_pallas=True` (the Pallas metric kernel in interpret mode on the CPU),
+f32, same weights, same JAX-derived GP noise, and a fork step inside the
+free run (n_past 2, n_eval 17: step 15 forks).
+
+Tolerances on (S, n_free, B): SSIM atol 5e-4, PSNR atol 1e-2 dB, MSE rtol
+1e-3, and equal best-of-N indices. Plus package hygiene (no JAX, nothing of
+`dvg_tpu`) and no hidden device (CUDA by default, raising without it)."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dvg_tpu.config import DVGConfig as JaxConfig
+from dvg_tpu.generate.rollout import best_of_n as j_best_of_n
+from dvg_tpu.generate.rollout import make_rollout_fns as j_make_rollout_fns
+from dvg_tpu.models.dvg import DVGModel as JaxModel
+from dvg_tpu_torch.config import DVGConfig
+from dvg_tpu_torch.convert import params_from_jax
+from dvg_tpu_torch.generate.rollout import (best_of_n, fork_schedule,
+                                            make_rollout_fns)
+from dvg_tpu_torch.models.dvg import DVGModel
+from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+
+TINY = dict(channels=3, image_width=64, batch_size=2, n_past=2, n_eval=17,
+            g_dim=16, rnn_size=64, num_inducing_points=8, nsample=3,
+            use_pallas=True)
+S, B, N_FREE = 3, 2, 15
+
+
+def unit_gain(path, a):
+    """Conv, transposed-conv and linear weights rescaled from the init law's
+    std 0.02 to std 1/√fan-in (HWIO convs see kh·kw·I inputs, the decoder's
+    transposed convs a quarter of that, (in, out) linears `in`). At every
+    decoder stage the latent's path is half of a concat with a skip and
+    passes a LeakyReLU, each halving its variance, so the decoder head and
+    the latent half of each later stage's input channels get a further 2×.
+    Without that the GP sample moves the frames so little that a wrongly
+    wired fork (the LSTM's prediction fed to the GP, eps rows permuted,
+    no fork at all) still passes the tolerances below."""
+    name = jax.tree_util.keystr(path)
+    if not name.endswith("['w']"):
+        return a
+    fan = int(np.prod(a.shape[:-1]))
+    if not name.startswith("['decoder']"):
+        return a / (0.02 * np.sqrt(fan))
+    a = a / (0.02 * np.sqrt(fan // 4))
+    if name.startswith("['decoder']['head']"):
+        return 2.0 * a
+    return a.at[:, :, :a.shape[2] // 2].multiply(2.0)
+
+
+def jax_state(jmodel, seed):
+    """Init at unit gain, then non-trivial BN statistics and a
+    well-conditioned, trained-looking GP (spread inducing points, see
+    test_torch_gp_lstm)."""
+    rng = np.random.RandomState(seed)
+    params, stats = jmodel.init(jax.random.PRNGKey(seed))
+    params = jax.tree_util.tree_map_with_path(unit_gain, params)
+
+    def bn_stats(path, a):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            return jnp.asarray(rng.uniform(0.5, 1.5, a.shape), jnp.float32)
+        return jnp.asarray(rng.normal(0, 0.1, a.shape), jnp.float32)
+
+    stats = jax.tree_util.tree_map_with_path(bn_stats, stats)
+    d, m = TINY["g_dim"], TINY["num_inducing_points"]
+    gp = dict(params["gp"],
+              z=jnp.asarray(np.linspace(-1, 1, m)[None, :, None]
+                            + rng.uniform(-0.03, 0.03, (d, m, 1)),
+                            jnp.float32),
+              var_mean=jnp.asarray(rng.normal(0, 0.5, (d, m)), jnp.float32),
+              raw_lengthscale=jnp.full((d,), -1.2, jnp.float32))
+    lik = {"raw_noise": jnp.full((d,), -2.0, jnp.float32)}
+    return dict(params, gp=gp, likelihood=lik), stats
+
+
+def jax_noise(key, s_n, n_free, b, d):
+    """eps (n_free, S, B, D) exactly as the JAX rollout derives it: per
+    sample split(key, S), per step split(·, n_free), per row
+    normal(fold_in(step_key, row), (D,))."""
+    step_keys = jnp.swapaxes(jax.vmap(lambda k: jax.random.split(k, n_free))(
+        jax.random.split(key, s_n)), 0, 1)                  # (n_free, S)
+    rows = jnp.arange(b)
+
+    def per_key(k):
+        return jax.vmap(lambda r: jax.random.normal(
+            jax.random.fold_in(k, r), (d,), jnp.float32))(rows)
+
+    return np.array(jax.vmap(jax.vmap(per_key))(step_keys))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jcfg = JaxConfig(**TINY)
+    jmodel = JaxModel(jcfg)
+    params, stats = jax_state(jmodel, seed=0)
+    x = np.random.RandomState(1).rand(17, B, 64, 64, 3).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    ref = j_make_rollout_fns(jmodel, jcfg).diverse_metrics(
+        params, stats, jmodel.gp_cache(params), jnp.asarray(x), key)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+
+    cfg = DVGConfig(**TINY)
+    port = DVGModel(cfg, device="cpu")
+    port.load_state_dict(params_from_jax(params, stats, cfg))
+    noise = jax_noise(key, S, N_FREE, B, TINY["g_dim"])
+    out = make_rollout_fns(port, cfg).diverse_metrics(x, noise=noise,
+                                                      device="cpu")
+    return cfg, port, x, noise, ref, {k: v.numpy() for k, v in out.items()}
+
+
+def test_fork_step_inside_free_run():
+    assert fork_schedule(2, 17).tolist() == [False] * 13 + [True, False]
+
+
+def test_diverse_metrics_matches_jax(runs):
+    cfg, port, x, noise, ref, out = runs
+    for k in ("ssim", "psnr", "mse"):
+        assert out[k].shape == ref[k].shape == (S, N_FREE, B)
+        assert np.all(np.isfinite(out[k]))
+    np.testing.assert_allclose(out["ssim"], ref["ssim"], atol=5e-4)
+    np.testing.assert_allclose(out["psnr"], ref["psnr"], atol=1e-2)
+    np.testing.assert_allclose(out["mse"], ref["mse"], rtol=1e-3)
+    # the fork at step 15 (index 13) moves the samples apart by many times
+    # the tolerances, so a wrongly wired fork cannot pass; the next step
+    # inherits the spread through x_in; before the fork the samples agree
+    assert np.ptp(out["ssim"][:, 13], axis=0).min() > 5 * 5e-4
+    assert np.ptp(out["psnr"][:, 13], axis=0).min() > 10 * 1e-2
+    mse13 = out["mse"][:, 13]
+    assert (np.ptp(mse13, axis=0) / mse13.mean(0)).min() > 10 * 1e-3
+    assert np.ptp(out["mse"][:, 14], axis=0).min() > 0
+    assert np.ptp(out["mse"][:, :13], axis=0).max() == 0
+
+
+def test_best_of_n_matches_jax(runs):
+    cfg, port, x, noise, ref, out = runs
+    metric = np.transpose(out["ssim"], (2, 0, 1))           # (B, S, T)
+    idx, best = best_of_n(torch.from_numpy(metric))
+    j_idx, j_best = j_best_of_n(jnp.asarray(np.transpose(ref["ssim"],
+                                                         (2, 0, 1))))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(best.numpy(), np.asarray(j_best), atol=5e-4)
+
+
+def test_best_of_n_ties_take_the_last_sample():
+    m = torch.tensor([[[1.0], [3.0], [3.0], [2.0]]])
+    idx, best = best_of_n(m)
+    assert idx.tolist() == [2] and best.tolist() == [3.0]
+    j_idx, _ = j_best_of_n(jnp.asarray(m.numpy()))
+    assert np.asarray(j_idx).tolist() == [2]
+
+
+def test_seeded_noise_is_deterministic(runs):
+    """Without `noise`, eps comes from a generator seeded by `seed`."""
+    cfg, port, x, noise, ref, out = runs
+    fns = make_rollout_fns(port, cfg)
+    a = fns.diverse_metrics(x, seed=4, device="cpu")
+    b = fns.diverse_metrics(x, seed=4, device="cpu")
+    c = fns.diverse_metrics(x, seed=5, device="cpu")
+    assert torch.equal(a["mse"], b["mse"])
+    assert not torch.equal(a["mse"][:, 13], c["mse"][:, 13])
+    assert torch.equal(a["mse"][:, :13], c["mse"][:, :13])
+
+
+def test_cpu_run_launches_no_kernel(runs):
+    cfg, port, x, noise, ref, out = runs
+    before = ssim_psnr_batch_cyclic.launches
+    make_rollout_fns(port, cfg).diverse_metrics(x, noise=noise, device="cpu")
+    assert ssim_psnr_batch_cyclic.launches == before
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(last_frame_skip=True), "item 9"),
+    (dict(full_cov_sampling=True), "item 9"),
+    (dict(eval_metric="finn"), "item 6"),
+    (dict(use_pallas=False), "item 7"),
+])
+def test_unported_paths_raise(runs, kw, match):
+    cfg, port, *_ = runs
+    with pytest.raises(NotImplementedError, match=match):
+        make_rollout_fns(port, cfg.replace(**kw))
+
+
+def test_no_hidden_device(runs):
+    """With no device argument the port asks for CUDA and raises where
+    there is none, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg, port, x, *_ = runs
+    with pytest.raises(RuntimeError, match="cuda"):
+        DVGModel(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_rollout_fns(port, cfg).diverse_metrics(x)
+
+
+def test_package_imports_no_jax_and_nothing_of_dvg_tpu():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np, torch
+        import dvg_tpu_torch
+        from dvg_tpu_torch.config import DVGConfig
+        from dvg_tpu_torch.generate.rollout import make_rollout_fns
+        from dvg_tpu_torch.models.dvg import DVGModel
+        import dvg_tpu_torch.convert, dvg_tpu_torch.ops.ssim_cuda
+        cfg = DVGConfig(channels=3, batch_size=2, n_past=2, n_eval=17,
+                        g_dim=16, rnn_size=64, num_inducing_points=8,
+                        nsample=2, use_pallas=True)
+        x = np.random.RandomState(0).rand(17, 2, 64, 64, 3).astype("f4")
+        out = make_rollout_fns(DVGModel(cfg, device="cpu"), cfg
+                               ).diverse_metrics(x, device="cpu")
+        assert out["ssim"].shape == (2, 15, 2)
+        bad = [m for m in sys.modules
+               if m == "dvg_tpu" or m.startswith("dvg_tpu.")
+               or m.startswith("jax") or m.startswith("flax")
+               or m.startswith("msgpack")]
+        assert not [m for m in bad if sys.modules[m] is not None], bad
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=Path(__file__).resolve().parent.parent)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
