@@ -6,17 +6,34 @@
 Phases, each failing the run (non-zero exit, no result line) on a mismatch:
   1. environment: card name and power limit, versions; builds every kernel
      of the port from the sources in this checkout and prints the build
-     seconds and ptxas' resource lines;
-  2. K1 (csrc/ssim_cyclic.cu) against its plain PyTorch version on the card
-     at the headline step shape (gt (50,64,64,3) f32, pred (5000,64,64,3)
-     bf16) and on identical images; times the kernel and the plain version;
-  3. the tiny f32 config of `diverse_metrics`, card (kernel) against CPU
+     seconds and ptxas' resource lines, by kernel;
+  2. K1 (csrc/ssim_cyclic.cu, cyclic mode) against its plain PyTorch version
+     on the card at the headline step shape (gt (50,64,64,3) f32, pred
+     (5000,64,64,3) bf16) and on identical images; times the kernel and the
+     plain version;
+  3. K2 (the same source, one-to-one mode) against its plain version at
+     5000 image pairs of 64×64×3, pred bf16 and f32, and on identical
+     images; times the kernel, its wrapper and the plain version;
+  4. checkpoint: writes the headline DCGAN-64 model from seeded weights in
+     the dvg_tpu format and reads it back, every leaf equal; the later
+     phases load their model from this file;
+  5. the tiny f32 config of `diverse_metrics`, card (kernel) against CPU
      (plain), same weights and noise, TF32 off;
-  4. the main path: the bf16 headline eval protocol of `diverse_metrics`
-     (DCGAN-64, S 100, B 50, n_past 5, n_eval 105) on random seeded
+  6. the rest of generation on the tiny f32 config, card against CPU, with
+     the seeded noise (`fork_noise`): `posterior`, `gp_trigger` (equal
+     trigger masks, at a margin whose nearest decision is far from its
+     threshold), `diverse_metrics`, and the exact re-roll — the futures
+     `diverse_select_pairs` re-rolls, scored by K2, give the scores K1 gave
+     them inside `diverse_metrics`;
+  7. the main path: the bf16 headline eval protocol of `diverse_metrics`
+     (DCGAN-64, S 100, B 50, n_past 5, n_eval 105) on the checkpoint's
      weights — one warm-up run, then one timed run with every kernel's
-     launch count set to 0 just before and read just after.
-  5. a torch.profiler pass over one more protocol run: device time by
+     launch count set to 0 just before and read just after;
+  8. the rest of generation at that width: `posterior`, `gp_trigger`, and
+     the eval CLI's re-roll of 40 (sample, row) pairs (10 rows × [best + 3
+     random]) scored by K2 — the K2 path, its counts set to 0 just before
+     and read just after;
+  9. a torch.profiler pass over one more protocol run: device time by
      kernel group and the card's busy share.
 Then one JSON line describing every kernel of the port, and last the
 device line.
@@ -26,14 +43,17 @@ Needs one card. Imports nothing of JAX and nothing of `dvg_tpu`.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CARD = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -47,8 +67,16 @@ TINY = dict(channels=3, image_width=64, g_dim=16, rnn_size=64,
             num_inducing_points=8, n_past=2, n_eval=32, nsample=3,
             batch_size=2, dtype="float32", use_pallas=True)
 
+K2_IMAGES = 5000          # one-to-one pairs in the K2 phase
+GIF_ROWS = 10             # the eval CLI's re-roll: rows × [best + 3 random]
+MAIN_MS_BEFORE = 1483.6   # PERF.md §5: the protocol before the seeded noise
+MAIN_SEED = 3             # the main run's seed, which the re-roll replays
+
 K1_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
 PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
+# a re-roll scored by K2 against the same future scored by K1 in the loop
+REROLL_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-4)
+FRAME_ATOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -91,6 +119,50 @@ def k1_cost(n: int, b: int, h: int, w: int, c: int, pred_bytes: int,
     return nbytes, flops
 
 
+def k2_cost(n: int, h: int, w: int, c: int, pred_bytes: int, win: int = 7):
+    """(bytes, f32 operations) K2 must at least move and do for one launch:
+    gt (f32) and pred read once, three f32 per plane written; per plane,
+    staging and squared error (8 per pixel), running-sum 7-wide boxes of
+    five moments in both directions (3 per output each), and the SSIM
+    epilogue (25 per map pixel)."""
+    hp, wp = h - win + 1, w - win + 1
+    planes = n * c
+    nbytes = n * h * w * c * (4 + pred_bytes) + 3 * planes * 4
+    flops = planes * (8 * h * w + 15 * h * wp + 15 * hp * wp + 25 * hp * wp)
+    return nbytes, flops
+
+
+def events_ms(fn):
+    """(fn's result, device ms of that one call by CUDA events)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def device_kernels(fn):
+    """(the card's kernels of one fn() call under torch.profiler, their
+    summed device ms, the ms from the first kernel's start to the last's
+    end)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e3
+    return kernels, busy, span
+
+
 def bound(nbytes: int, flops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -125,14 +197,30 @@ def phase_environment():
           f"  cuda {torch.version.cuda}  nvcc {nvcc[-1] if nvcc else '?'}")
     print(f"[env] device {torch.cuda.get_device_name(0)}  "
           f"count {torch.cuda.device_count()}")
+    resources = {}
     for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
         t0 = time.perf_counter()
         log = _build.build(name)
         print(f"[build] {name}: {time.perf_counter() - t0:.2f} s "
               f"({'compiled' if log else 'cached'})")
+        entry = name
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                resources.setdefault(entry, []).append(
+                    line.replace("ptxas info    :", "").strip())
+    for entry, lines in resources.items():
+        print(f"[build] {entry}: {'; '.join(lines)}")
+    return resources
+
+
+def kernel_label(mangled: str) -> str:
+    """'K1 bf16' etc. for a mangled ssim_kernel<T, kOwnGt> instance."""
+    if "ssim_kernel" not in mangled:
+        return mangled
+    mode = "K2" if "Lb1E" in mangled else "K1"
+    return f"{mode} {'bf16' if 'bfloat16' in mangled else 'f32'}"
 
 
 def phase_k1():
@@ -140,7 +228,7 @@ def phase_k1():
     import torch
     from dvg_tpu_torch.ops import ssim as plain
     from dvg_tpu_torch.ops import ssim_cuda
-    dev = torch.device("cuda")
+    dev = torch.device(CARD)
     s_n, b, hw, c = HEADLINE["nsample"], HEADLINE["batch_size"], 64, 3
     g = torch.Generator(device=dev).manual_seed(0)
     gt = torch.rand((b, hw, hw, c), generator=g, device=dev)
@@ -189,6 +277,84 @@ def phase_k1():
                 bound_by=b_by)
 
 
+def phase_k2(resources):
+    """K2 against its plain version: K2_IMAGES one-to-one pairs of 64×64×3,
+    f32 gt, pred bf16 and f32."""
+    import torch
+    from dvg_tpu_torch.ops import ssim as plain
+    from dvg_tpu_torch.ops import ssim_cuda
+    dev = torch.device(CARD)
+    n, hw, c = K2_IMAGES, 64, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    gt = torch.rand((n, hw, hw, c), generator=g, device=dev)
+    pred32 = 0.6 * gt + 0.4 * torch.rand((n, hw, hw, c), generator=g,
+                                         device=dev)
+    pred = pred32.to(torch.bfloat16)
+    worst = 0.0
+    for name, p in (("bf16", pred), ("f32", pred32)):
+        got = ssim_cuda.ssim_psnr_batch_images(gt, p)
+        torch.cuda.synchronize()
+        errs = max_errs(got, plain.ssim_psnr_images_plain(gt, p))
+        print(f"[k2] {n} pairs {tuple(p.shape)} {name} pred vs plain: "
+              f"max|dssim| {errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  "
+              f"max rel dmse {errs[2]:.3e}  (tol {K1_TOL})")
+        check(within(errs, K1_TOL),
+              f"K2 ({name} pred) disagrees with its plain version: {errs}")
+        check(all(torch.isfinite(t).all() for t in got), "K2 output not finite")
+        worst = max(worst, errs[3])
+
+    same = gt[:64].to(torch.bfloat16)
+    s_v, q_v, m_v = ssim_cuda.ssim_psnr_batch_images(same.float(), same)
+    torch.cuda.synchronize()
+    d1 = (s_v - 1).abs().max().item()
+    print(f"[k2] identical images: max|ssim-1| {d1:.3e}  max mse "
+          f"{m_v.max().item():.3e}  min psnr {q_v.min().item():.1f} dB")
+    check(d1 <= 1e-4 and m_v.max().item() == 0.0, "K2 identical-image case")
+
+    k_ms = cuda_ms(lambda: ssim_cuda.launch_images(gt, pred), 20)
+    w_ms = cuda_ms(lambda: ssim_cuda.ssim_psnr_batch_images(gt, pred), 20)
+    p_ms = cuda_ms(lambda: plain.ssim_psnr_images_plain(gt, pred), 5)
+    nbytes, flops = k2_cost(n, hw, hw, c, pred.element_size())
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"[k2] kernel {k_ms * 1e3:.1f} us/launch  wrapper (with channel "
+          f"mean) {w_ms * 1e3:.1f} us  plain {p_ms * 1e3:.1f} us  bound "
+          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP)  = {b_ms / k_ms:.1%} of bound")
+    for entry in ("K2 bf16", "K2 f32"):
+        print(f"[k2] ptxas {entry}: {'; '.join(resources.get(entry, ['?']))}")
+    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_checkpoint(directory: str) -> str:
+    """The headline model from seeded weights, written in the dvg_tpu
+    format and read back; every leaf must come back equal."""
+    import os
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.models.dvg import DVGModel
+    cfg = DVGConfig(**HEADLINE)
+    model = DVGModel(cfg, seed=0, device=CARD)
+    t0 = time.perf_counter()
+    path = save_checkpoint(directory, cfg, model)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cfg2, loaded = load_model(path, device=CARD)
+    torch.cuda.synchronize()
+    read_ms = (time.perf_counter() - t0) * 1e3
+    want, got = model.state_dict(), loaded.state_dict()
+    same = want.keys() == got.keys() and all(
+        torch.equal(want[k], got[k]) for k in want)
+    print(f"[ckpt] DCGAN-64 headline model: {os.path.getsize(path) / 1e6:.1f}"
+          f" MB, {len(want)} leaves; write {write_ms:.0f} ms, read onto the "
+          f"card {read_ms:.0f} ms; config equal {cfg2 == cfg}, every leaf "
+          f"equal {same}")
+    check(cfg2 == cfg, "the checkpoint's config differs")
+    check(same, "a checkpoint leaf came back different")
+    return path
+
+
 def unit_gain_model(cfg, device):
     """Seeded random weights rescaled to unit gain per layer (std
     1/√fan-in), so the GP draw visibly moves the frames and best-of-N has
@@ -225,16 +391,16 @@ def phase_tiny():
     noise = rng.randn(n_free, cfg.nsample, cfg.batch_size,
                       cfg.g_dim).astype(np.float32)
     outs = {}
-    for dev in ("cpu", "cuda"):
+    for dev in ("cpu", CARD):
         model = unit_gain_model(cfg, dev)
         ssim_psnr_batch_cyclic.launches = 0
         out = make_rollout_fns(model, cfg).diverse_metrics(x, noise=noise,
                                                            device=dev)
-        if dev == "cuda":
+        if dev == CARD:
             torch.cuda.synchronize()
             launches = ssim_psnr_batch_cyclic.launches
         outs[dev] = {k: v.cpu() for k, v in out.items()}
-    cpu, card = outs["cpu"], outs["cuda"]
+    cpu, card = outs["cpu"], outs[CARD]
     errs = max_errs([card[k] for k in ("ssim", "psnr", "mse")],
                     [cpu[k] for k in ("ssim", "psnr", "mse")])
     idx_card, _ = best_of_n(card["ssim"].permute(2, 0, 1))
@@ -251,19 +417,149 @@ def phase_tiny():
     check(torch.equal(idx_card, idx_cpu), "best-of-N indices differ")
 
 
-def phase_main():
-    """The main path at full width, bf16."""
+def with_trained_gp(model, seed: int):
+    """Give `model` (on the CPU) a trained-looking GP, in place: spread
+    inducing points, a non-zero variational mean, a non-identity
+    variational Cholesky, a shorter lengthscale and a smaller noise. At the
+    init's L_S = I the GP variance is the constant outputscale, so the
+    trigger's signal would never move; the spread keeps K_ZZ well
+    conditioned, so the card's f32 GP cache and the CPU's agree."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    d, m = model.gp.var_mean.shape
+    values = dict(
+        z=np.linspace(-1, 1, m)[None, :, None]
+        + rng.uniform(-0.03, 0.03, (d, m, 1)),
+        var_mean=rng.normal(0, 0.5, (d, m)),
+        var_chol=np.eye(m) * rng.uniform(0.2, 0.6, (d, 1, m))
+        + np.tril(rng.normal(0, 0.1, (d, m, m)), -1),
+        raw_lengthscale=np.full(d, -1.2))
+    with torch.no_grad():
+        for name, v in values.items():
+            getattr(model.gp, name).copy_(torch.as_tensor(v,
+                                                          dtype=torch.float32))
+        model.likelihood.raw_noise.fill_(-2.0)
+    return model
+
+
+METRICS = ("ssim", "psnr", "mse")
+
+
+def frames_err(a, b) -> float:
+    return (a.cpu() - b.cpu()).abs().max().item()
+
+
+def phase_gen_tiny():
+    """The rest of generation on the tiny f32 config, card against CPU,
+    with the seeded noise; then the exact re-roll on the card."""
+    import numpy as np
     import torch
     from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.ops import ssim_cuda
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = DVGConfig(**TINY)
+    n_past, n_free = cfg.n_past, cfg.n_eval - cfg.n_past
+    x = (np.random.RandomState(1).rand(cfg.n_eval, cfg.batch_size, 64, 64, 3)
+         * 2 - 1).astype(np.float32)
+    models = {"cpu": with_trained_gp(unit_gain_model(cfg, "cpu"), seed=2)}
+    models[CARD] = copy.deepcopy(models["cpu"]).to(CARD)
+    devs = ("cpu", CARD)
+
+    def fns(dev, **kw):
+        return make_rollout_fns(models[dev], cfg.replace(**kw))
+
+    post = {d: fns(d).posterior(x, device=d).cpu() for d in devs}
+    err = frames_err(post[CARD], post["cpu"])
+    print(f"[gen-tiny] posterior {tuple(post[CARD].shape)} card vs cpu: "
+          f"max|dframe| {err:.3e} (atol {FRAME_ATOL})")
+    check(err <= FRAME_ATOL and bool(torch.isfinite(post[CARD]).all()),
+          f"posterior card vs CPU: {err}")
+
+    # the margin, among those at which some but not all decisions fire,
+    # whose nearest decision sits farthest from its threshold (on the CPU)
+    best = None
+    for margin in (0.0, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3):
+        _, diag = fns("cpu", trigger_margin=margin).gp_trigger(
+            x, seed=7, device="cpu")
+        gap = (diag["values"] - diag["thresholds"]).abs().min().item()
+        if diag["triggers"].any() and not diag["triggers"].all() and (
+                best is None or gap > best[1]):
+            best = (margin, gap)
+    check(best is not None, "no trigger margin fires on some but not all "
+          "decisions of the tiny clip")
+    runs = {d: fns(d, trigger_margin=best[0]).gp_trigger(x, seed=7, device=d)
+            for d in devs}
+    f_cpu, d_cpu = runs["cpu"]
+    f_card, d_card = runs[CARD][0], {k: v.cpu() for k, v in runs[CARD][1].items()}
+    masks_equal = torch.equal(d_card["triggers"], d_cpu["triggers"])
+    ferr = frames_err(f_card, f_cpu)
+    verr = max(((d_card[k] - d_cpu[k]).abs() / d_cpu[k].abs()).max().item()
+               for k in ("values", "warmup_values"))
+    margin_cpu = d_cpu["values"] - d_cpu["thresholds"]
+    derr = (d_card["values"] - d_card["thresholds"] - margin_cpu
+            ).abs().max().item()
+    gap = margin_cpu.abs().min().item()
+    trig = d_cpu["triggers"]
+    print(f"[gen-tiny] gp_trigger margin {best[0]}: {int(trig.sum())} of "
+          f"{trig.numel()} decisions fire, masks equal {masks_equal}; "
+          f"max|dframe| {ferr:.3e}, values max rel d {verr:.3e}; nearest "
+          f"decision {gap:.3e} from its threshold = "
+          f"{gap / max(derr, 1e-30):.3g}x the card-vs-cpu difference "
+          f"{derr:.3e} of value - threshold")
+    check(masks_equal, "gp_trigger masks differ between card and CPU")
+    check(ferr <= FRAME_ATOL, f"gp_trigger frames card vs CPU: {ferr}")
+    check(verr <= 1e-4, f"gp_trigger values card vs CPU: {verr}")
+    check(gap >= 10 * derr, f"a trigger decision sits {gap} from its "
+          f"threshold, within 10x the card-vs-CPU difference {derr}")
+
+    met = {d: {k: v.cpu() for k, v in fns(d).diverse_metrics(
+        x, seed=11, device=d).items()} for d in devs}
+    errs = max_errs([met[CARD][k] for k in METRICS],
+                    [met["cpu"][k] for k in METRICS])
+    print(f"[gen-tiny] diverse_metrics(seed) card vs cpu: max|dssim| "
+          f"{errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  max rel dmse "
+          f"{errs[2]:.3e}  (tol {PATH_TOL})")
+    check(within(errs, PATH_TOL), f"seeded diverse_metrics card vs CPU: "
+          f"{errs}")
+
+    # the exact re-roll: pairs whose futures forked at steps 15 and 30
+    pairs = [(2, 1), (0, 0), (1, 1), (2, 0)]            # (sample, row)
+    ids, rows = [p[0] for p in pairs], [p[1] for p in pairs]
+    frames = fns(CARD).diverse_select_pairs(x[:, rows], ids, rows, seed=11,
+                                            device=CARD)
+    gt = torch.as_tensor(x[n_past:, rows], device=CARD).reshape(-1, 64, 64, 3)
+    scored = ssim_cuda.ssim_psnr_batch_images(
+        gt, frames[n_past:].reshape(-1, 64, 64, 3).contiguous())
+    scored = [v.reshape(n_free, len(pairs)).cpu() for v in scored]
+    ref = [torch.stack([met[CARD][k][s, :, r] for s, r in pairs], dim=1)
+           for k in METRICS]
+    errs = max_errs(scored, ref)
+    spread = np.ptp(met[CARD]["mse"][:, 13].numpy(), axis=0).min()
+    print(f"[gen-tiny] re-roll of {len(pairs)} (sample, row) pairs scored by "
+          f"K2 vs their in-loop K1 scores: max|dssim| {errs[0]:.3e}  "
+          f"max|dpsnr| {errs[1]:.3e} dB  max rel dmse {errs[2]:.3e}  (tol "
+          f"{REROLL_TOL}); samples' mse spread at the step-15 fork "
+          f"{spread:.3e}")
+    check(within(errs, REROLL_TOL), f"the re-roll does not reproduce the "
+          f"scored futures: {errs}")
+    check(spread > 0, "the fork did not separate the samples")
+
+
+def phase_main(ckpt: str):
+    """The main path at full width, bf16, on the checkpoint's weights."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model
     from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
-    from dvg_tpu_torch.models.dvg import DVGModel
-    from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
     torch.backends.cudnn.benchmark = True
-    cfg = DVGConfig(**HEADLINE)
-    s_n, b, n_free = cfg.nsample, cfg.batch_size, cfg.n_eval - cfg.n_past
-    dev = torch.device("cuda")
+    dev = torch.device(CARD)
     t0 = time.perf_counter()
-    model = DVGModel(cfg, seed=0, device="cuda")
+    cfg, model = load_model(ckpt, device=CARD)
+    s_n, b, n_free = cfg.nsample, cfg.batch_size, cfg.n_eval - cfg.n_past
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand((cfg.n_eval, b, 64, 64, 3), generator=g, device=dev)
     fns = make_rollout_fns(model, cfg)
@@ -275,9 +571,10 @@ def phase_main():
     torch.cuda.reset_peak_memory_stats()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_images.launches = 0
     t0 = time.perf_counter()
     start.record()
-    out = fns.diverse_metrics(x, seed=3)
+    out = fns.diverse_metrics(x, seed=MAIN_SEED)
     end.record()
     torch.cuda.synchronize()
     launches = ssim_psnr_batch_cyclic.launches
@@ -286,7 +583,8 @@ def phase_main():
     frames = s_n * n_free * b
     finite = all(torch.isfinite(v).all().item() for v in out.values())
     print(f"[main] DCGAN-64 bf16 S {s_n} B {b} n_free {n_free}: "
-          f"{ms:.1f} ms/protocol (events), {host_s * 1e3:.1f} ms host, "
+          f"{ms:.1f} ms/protocol (events; {MAIN_MS_BEFORE} ms before the "
+          f"seeded noise, PERF.md §5), {host_s * 1e3:.1f} ms host, "
           f"{frames / (ms / 1e3):,.0f} frames/s; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"K1 launches {launches}; finite {finite}")
@@ -300,10 +598,87 @@ def phase_main():
           f"{out['psnr'].mean().item():.4f} dB  mean mse "
           f"{out['mse'].mean().item():.5f}  best-of-N mean ssim "
           f"{best.mean().item():.5f}")
-    return fns, x, launches
+    return cfg, fns, x, out, launches
 
 
-KERNEL_GROUPS = (("K1 ssim_cyclic", ("ssim_cyclic",)),
+def phase_gen_full(cfg, fns, x, out):
+    """The rest of generation at the headline width (bf16, the
+    checkpoint's weights), each entry timed by CUDA events after a warm-up:
+    posterior, gp_trigger, and the eval CLI's re-roll of the main run's
+    best and 3 random futures of GIF_ROWS rows, scored by K2 — the K2 path,
+    with every count set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.generate.rollout import TRIGGER_WARMUP, best_of_n
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    s_n, b, n_past, n_eval = cfg.nsample, cfg.batch_size, cfg.n_past, \
+        cfg.n_eval
+    n_free, img = n_eval - n_past, tuple(x.shape[2:])
+
+    fns.posterior(x)                                      # warm-up
+    post, post_ms = events_ms(lambda: fns.posterior(x))
+    print(f"[gen-full] posterior B {b} n_eval {n_eval}: {post_ms:.1f} ms")
+    check(tuple(post.shape) == (n_eval, b) + img
+          and bool(torch.isfinite(post).all()), "posterior shape or finite")
+
+    fns.gp_trigger(x, seed=5)                             # warm-up
+    (frames, diag), trig_ms = events_ms(lambda: fns.gp_trigger(x, seed=5))
+    per_row = diag["triggers"].sum(0).float()
+    print(f"[gen-full] gp_trigger B {b} n_eval {n_eval}: {trig_ms:.1f} ms; "
+          f"triggers per row min {per_row.min().item():.0f} mean "
+          f"{per_row.mean().item():.2f} max {per_row.max().item():.0f} of "
+          f"{n_eval - TRIGGER_WARMUP} steps")
+    check(tuple(frames.shape) == (n_eval, b) + img
+          and bool(torch.isfinite(frames).all())
+          and tuple(diag["triggers"].shape) == (n_eval - TRIGGER_WARMUP, b),
+          "gp_trigger shape or finite")
+
+    idx, _ = best_of_n(out["ssim"].permute(2, 0, 1))
+    rng = np.random.RandomState(0)
+    sids, rows = [], []
+    for i in range(min(b, GIF_ROWS)):
+        sids += [int(idx[i])] + [int(v) for v in rng.randint(0, s_n, 3)]
+        rows += [i] * 4
+    x_sel = x[:, rows].contiguous()
+    fns.diverse_select_pairs(x_sel, sids, rows, seed=MAIN_SEED)   # warm-up
+    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_images.launches = 0
+    sel, sel_ms = events_ms(
+        lambda: fns.diverse_select_pairs(x_sel, sids, rows, seed=MAIN_SEED))
+    scored, k2_ms = events_ms(lambda: ssim_psnr_batch_images(
+        x_sel[n_past:].reshape((-1,) + img),
+        sel[n_past:].reshape((-1,) + img)))
+    launches = ssim_psnr_batch_images.launches
+    k = len(sids)
+    scored = [v.reshape(n_free, k) for v in scored]
+    ref = [out[m][torch.tensor(sids), :, torch.tensor(rows)].T
+           for m in METRICS]
+    errs = max_errs(scored, ref)
+    print(f"[gen-full] diverse_select_pairs of {k} pairs ({k // 4} rows x "
+          f"[best + 3 random]): {sel_ms:.1f} ms; K2 scoring {k2_ms:.2f} ms, "
+          f"K2 launches {launches}; K2 scores vs the same futures' K1 scores "
+          f"in the main run (bf16, information only): max|dssim| "
+          f"{errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  max rel dmse "
+          f"{errs[2]:.3e}")
+    check(tuple(sel.shape) == (n_eval, k) + img
+          and bool(torch.isfinite(sel).all()), "re-roll shape or finite")
+    check(all(bool(torch.isfinite(v).all()) for v in scored),
+          "K2 scores not finite")
+    check(launches == 1, f"K2 launched {launches} times for 1 call")
+    check(ssim_psnr_batch_cyclic.launches == 0, "the re-roll launched K1")
+
+    for name, fn in (("posterior", lambda: fns.posterior(x)),
+                     ("gp_trigger", lambda: fns.gp_trigger(x, seed=5)),
+                     ("re-roll", lambda: fns.diverse_select_pairs(
+                         x_sel, sids, rows, seed=MAIN_SEED))):
+        kernels, busy, span = device_kernels(fn)
+        print(f"[gen-full] {name} profiled: {len(kernels)} kernels, device "
+              f"busy {busy:.1f} ms of a {span:.1f} ms span ({busy / span:.1%})")
+    return launches
+
+
+KERNEL_GROUPS = (("K1 ssim_kernel (cyclic mode)", ("ssim_kernel",)),
                  ("transposed conv (dgrad)", ("dgrad",)),
                  ("conv (fprop)", ("fprop", "cutlass")),
                  ("cuDNN layout/padding", ("Padding", "ToNhwc", "ToNchw")),
@@ -314,18 +689,8 @@ KERNEL_GROUPS = (("K1 ssim_cyclic", ("ssim_cyclic",)),
 def phase_profile(fns, x):
     """Device time by kernel group over one protocol run, and the card's
     busy share of its first-to-last-kernel span."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch_profile(activities=acts) as prof:
-        fns.diverse_metrics(x, seed=4)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    span = (max(e.time_range.end for e in kernels)
-            - min(e.time_range.start for e in kernels)) / 1e3
+    kernels, busy, span = device_kernels(lambda: fns.diverse_metrics(x,
+                                                                     seed=4))
     print(f"[profile] {len(kernels)} kernels, device busy {busy:.1f} ms of "
           f"a {span:.1f} ms span ({busy / span:.1%})")
     rest = busy
@@ -358,21 +723,28 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
     try:
-        phase_environment()
+        resources = phase_environment()
         k1 = phase_k1()
-        phase_tiny()
-        fns, x, launches = phase_main()
-        phase_profile(fns, x)
+        k2 = phase_k2(resources)
+        with tempfile.TemporaryDirectory(prefix="dvg_smoke_") as tmp:
+            ckpt = phase_checkpoint(tmp)
+            phase_tiny()
+            phase_gen_tiny()
+            cfg, fns, x, out, k1["launches"] = phase_main(ckpt)
+            k2["launches"] = phase_gen_full(cfg, fns, x, out)
+            phase_profile(fns, x)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = [dict(name="ssim_cyclic", route="cuda",
-                    source="dvg_tpu_torch/csrc/ssim_cyclic.cu",
-                    replaces="dvg_tpu/ops/pallas_ssim.py:187",
-                    launches=launches, max_abs_err=k1["max_abs_err"],
-                    ms=k1["ms"], plain_ms=k1["plain_ms"],
-                    bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
-                    library_ms=None)]
+    source = "dvg_tpu_torch/csrc/ssim_cyclic.cu"
+    kernels = [dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=k["launches"], max_abs_err=k["max_abs_err"],
+                    ms=k["ms"], plain_ms=k["plain_ms"],
+                    bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+                    library_ms=None)
+               for name, replaces, k in (
+                   ("ssim_cyclic", "dvg_tpu/ops/pallas_ssim.py:187", k1),
+                   ("ssim_images", "dvg_tpu/ops/pallas_ssim.py:153", k2))]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,11 @@ asks for the CPU, and raise where there is no card. Public tensors keep the
 JAX package's layouts: NHWC images, (T, B, H, W, C) clips and
 (S, n_free, B) metrics.
 
-Ported so far: the diverse-generation eval of DCGAN-64
-(`generate.rollout.make_rollout_fns(...).diverse_metrics`) with its
-hand-written CUDA metric kernel (`ops/ssim_cuda.py`, `csrc/ssim_cyclic.cu`).
+Ported so far: generation for DCGAN-64 (`generate.rollout.make_rollout_fns`:
+posterior, diverse, diverse_metrics, the exact re-rolls, plot_samples and
+gp_trigger) with both hand-written CUDA metric kernels (`ops/ssim_cuda.py`,
+`csrc/ssim_cyclic.cu`), and the `dvg_tpu` checkpoint format
+(`checkpoint.py`).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,113 @@
+"""Read and write the `dvg_tpu` checkpoint format (`model.ckpt`) without
+JAX, flax or msgpack (counterpart of `dvg_tpu/train/checkpoint.py`).
+
+The file is one msgpack map `{config, opt_states, params, stats, step}`:
+`config` is the DVGConfig as a JSON string; the other entries are flax
+state dicts, in which every list became a map keyed "0", "1", …, and every
+array a numpy extension value (`_msgpack`). The JAX package writes its
+maps with sorted keys.
+
+    cfg, model = load_model("runs/mnist", device="cuda")
+    cfg, state_dict, payload = load_checkpoint("runs/mnist/model.ckpt")
+    save_checkpoint("out", cfg, model, payload)
+
+`load_checkpoint` maps params and stats to a `DVGModel` state_dict through
+`convert.params_from_jax`; `save_checkpoint` maps a model back through
+`convert.params_to_jax` and carries `opt_states` and `step` of a loaded
+payload through untouched, so a dvg_tpu training run can resume from it.
+Without a payload it writes empty optimizer states and step 0: a file
+`dvg_tpu` generation reads, but not one its training can resume from.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dvg_tpu_torch import _msgpack
+from dvg_tpu_torch.config import DVGConfig
+from dvg_tpu_torch.convert import params_from_jax, params_to_jax
+from dvg_tpu_torch.models.dvg import DVGModel
+
+CKPT_NAME = "model.ckpt"
+PAYLOAD_KEYS = ("config", "opt_states", "params", "stats", "step")
+
+
+def _file(path: str) -> str:
+    return os.path.join(path, CKPT_NAME) if os.path.isdir(path) else path
+
+
+def _lists(tree: Any) -> Any:
+    """A flax state dict → the JAX package's pytree: maps keyed exactly
+    "0".."n−1" become lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _state_dict(tree: Any) -> Any:
+    """The inverse of `_lists`, with keys sorted as the JAX writer sorts
+    them."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: _state_dict(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def load_checkpoint(path: str) -> Tuple[DVGConfig, Dict[str, torch.Tensor],
+                                        Dict[str, Any]]:
+    """`path` (a file, or a directory holding model.ckpt) → (its config, a
+    state_dict for `DVGModel(cfg)` on the CPU, the decoded payload)."""
+    with open(_file(path), "rb") as f:
+        payload = _msgpack.unpackb(f.read())
+    if not isinstance(payload, dict) or set(payload) != set(PAYLOAD_KEYS):
+        keys = sorted(payload) if isinstance(payload, dict) else payload
+        raise ValueError(f"{path}: not a dvg_tpu checkpoint (top-level "
+                         f"entries {keys}, want {list(PAYLOAD_KEYS)})")
+    cfg = DVGConfig.from_dict(json.loads(payload["config"]))
+    sd = params_from_jax(_lists(payload["params"]), _lists(payload["stats"]),
+                         cfg)
+    return cfg, sd, payload
+
+
+def load_model(path: str, device="cuda") -> Tuple[DVGConfig, DVGModel]:
+    """(config, DVGModel with the checkpoint's weights on `device`)."""
+    cfg, sd, _ = load_checkpoint(path)
+    model = DVGModel(cfg, device="cpu")
+    model.load_state_dict(sd)
+    return cfg, model.to(device)
+
+
+def save_checkpoint(path: str, cfg: DVGConfig, model: DVGModel,
+                    payload: Optional[Dict[str, Any]] = None) -> str:
+    """Write `model`'s weights and `cfg` in the dvg_tpu format. `path` is a
+    directory (model.ckpt is written inside it) unless it ends in .ckpt or
+    .msgpack, as in the JAX package. Returns the file written."""
+    is_file = (not path.endswith(os.sep) and not os.path.isdir(path)
+               and os.path.splitext(path)[1] in (".ckpt", ".msgpack"))
+    if is_file:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    else:
+        os.makedirs(path, exist_ok=True)
+        path = os.path.join(path, CKPT_NAME)
+    params, stats = params_to_jax(model.state_dict(), cfg)
+    blob = _msgpack.packb({
+        "config": json.dumps(cfg.to_dict()),
+        "opt_states": payload["opt_states"] if payload else {},
+        "params": _state_dict(params),
+        "stats": _state_dict(stats),
+        "step": payload["step"] if payload else np.asarray(0, np.int32),
+    })
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+    return path

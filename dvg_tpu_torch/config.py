@@ -81,6 +81,13 @@ class DVGConfig:
         cfg.mesh_shape = tuple(tuple(x) for x in cfg.mesh_shape)
         return cfg
 
+    def generation_override(self) -> "DVGConfig":
+        """The restore-then-override contract of the reference's
+        generation script: a checkpoint's config with the eval protocol's
+        n_eval 105, n_future 100 and batch 50."""
+        return dataclasses.replace(self, n_eval=105, n_future=100,
+                                   batch_size=50)
+
     def replace(self, **kw) -> "DVGConfig":
         return dataclasses.replace(self, **kw)
 

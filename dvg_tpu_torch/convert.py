@@ -1,5 +1,6 @@
-"""Carry weights from the JAX package's (params, stats) pytrees into the
-port's `DVGModel` state_dict.
+"""Carry weights between the JAX package's (params, stats) pytrees and the
+port's `DVGModel` state_dict: `params_from_jax` and its inverse
+`params_to_jax`.
 
 Layout maps (the JAX package keeps NHWC activations and HWIO kernels):
   Conv2d          HWIO → (O, I, kh, kw)   w.transpose(3, 2, 0, 1)
@@ -10,12 +11,13 @@ Layout maps (the JAX package keeps NHWC activations and HWIO kernels):
   LSTMCell        (·, 4H) → (4H, ·)       w.T, gate order i, f, g, o in both
   BatchNorm       scale/bias/mean/var → weight/bias/running_mean/running_var
   GP, likelihood  same shapes and names
-Leaves may be numpy arrays or anything `np.asarray` takes.
+Leaves may be numpy arrays or anything `np.asarray` takes. Every map is an
+exact permutation or flip of f32 values, so a round trip is bit-exact.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -82,3 +84,78 @@ def params_from_jax(params: Dict, stats: Dict, cfg: DVGConfig
         out[f"gp.{k}"] = _t(v)
     out["likelihood.raw_noise"] = _t(params["likelihood"]["raw_noise"])
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _block_to_jax(sd: Dict[str, torch.Tensor], prefix: str, conv
+                  ) -> Tuple[Dict, Dict]:
+    p = {"bn": {"bias": _np(sd[f"{prefix}.bn.bias"]),
+                "scale": _np(sd[f"{prefix}.bn.weight"])},
+         "conv": {"b": _np(sd[f"{prefix}.conv.bias"]),
+                  "w": conv(sd[f"{prefix}.conv.weight"])}}
+    s = {"bn": {"mean": _np(sd[f"{prefix}.bn.running_mean"]),
+                "var": _np(sd[f"{prefix}.bn.running_var"])}}
+    return p, s
+
+
+def conv_weight_to_jax(w: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(_np(w).transpose(2, 3, 1, 0))
+
+
+def conv_transpose_weight_to_jax(w: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(_np(w).transpose(2, 3, 0, 1)[::-1, ::-1])
+
+
+def params_to_jax(sd: Dict[str, torch.Tensor], cfg: DVGConfig
+                  ) -> Tuple[Dict, Dict]:
+    """A `DVGModel` state_dict → dvg_tpu `(params, stats)` of a DCGAN-64
+    `lstm` model: nested dicts and lists of f32 numpy arrays, the inverse
+    of `params_from_jax`."""
+    if cfg.model != "dcgan" or cfg.image_width != 64:
+        raise NotImplementedError(
+            "params_to_jax: only DCGAN-64 is ported (ROADMAP queue 1 "
+            "item 13)")
+
+    def stages(prefix: str, conv):
+        n = len({k.split(".")[2] for k in sd if k.startswith(prefix)})
+        pairs = [_block_to_jax(sd, f"{prefix}.{i}", conv) for i in range(n)]
+        return [p for p, _ in pairs], [s for _, s in pairs]
+
+    enc_p, enc_s = stages("encoder.stages", conv_weight_to_jax)
+    head_p, head_s = _block_to_jax(sd, "encoder.head", conv_weight_to_jax)
+    dec_p, dec_s = stages("decoder.stages", conv_transpose_weight_to_jax)
+    dhead_p, dhead_s = _block_to_jax(sd, "decoder.head",
+                                     conv_transpose_weight_to_jax)
+    n_cells = len({k.split(".")[2] for k in sd
+                   if k.startswith("frame_predictor.cells.")})
+
+    def linear_w(k: str) -> np.ndarray:
+        return np.ascontiguousarray(_np(sd[k]).T)
+
+    fp = {name: {"b": _np(sd[f"frame_predictor.{name}.bias"]),
+                 "w": linear_w(f"frame_predictor.{name}.weight")}
+          for name in ("embed", "output")}
+    fp["cells"] = []
+    for i in range(n_cells):
+        c = f"frame_predictor.cells.{i}"
+        fp["cells"].append({"b_hh": _np(sd[f"{c}.bias_hh"]),
+                            "b_ih": _np(sd[f"{c}.bias_ih"]),
+                            "w_hh": linear_w(f"{c}.weight_hh"),
+                            "w_ih": linear_w(f"{c}.weight_ih")})
+    params = {
+        "decoder": {"final": {"b": _np(sd["decoder.final.bias"]),
+                              "w": conv_transpose_weight_to_jax(
+                                  sd["decoder.final.weight"])},
+                    "head": dhead_p, "stages": dec_p},
+        "encoder": {"head": head_p, "stages": enc_p},
+        "frame_predictor": fp,
+        "gp": {k[len("gp."):]: _np(v) for k, v in sd.items()
+               if k.startswith("gp.")},
+        "likelihood": {"raw_noise": _np(sd["likelihood.raw_noise"])},
+    }
+    stats = {"decoder": {"head": dhead_s, "stages": dec_s},
+             "encoder": {"head": head_s, "stages": enc_s}}
+    return params, stats

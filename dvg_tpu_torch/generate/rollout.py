@@ -1,27 +1,40 @@
-"""The diverse-generation eval (counterpart of `dvg_tpu/generate/rollout.py`:
-`_context_phase`, `make_rollout_fns(...).diverse_metrics`, `best_of_n`).
+"""The generation engine (counterpart of `dvg_tpu/generate/rollout.py`):
+`make_rollout_fns(model, cfg)` → posterior, diverse, diverse_metrics,
+diverse_select, diverse_select_pairs, diverse_rollout_with_keys,
+plot_samples and gp_trigger; and `best_of_n`.
 
-`diverse_metrics` rolls S sampled futures of a (T, B, H, W, C) clip as one
-loop over a merged sample-major (S·B) batch (row s·B + b):
+Every sampled path rolls its K futures of a (T, B, H, W, C) clip as one
+loop over a merged sample-major (K·B) batch (row k·B + b):
   * context: frames 0..n_past−2 warm the LSTM; the skips are frozen at
     frame n_past−2; the free run starts from x_in = x[n_past−1];
   * every step encodes x_in, advances the LSTM, and on the fork steps
-    (step % 15 == 0 for step in n_past..n_eval−1) replaces the LSTM's
-    prediction with a GP sample of gp(h) — h = enc(x_in), not the
-    prediction — then decodes with the skip halves hoisted out of the loop;
-  * every step scores its frames against the f32 ground truth through K1
-    (ops/ssim_cuda.py): SSIM, PSNR and MSE per (sample, row).
-Returns {"ssim", "psnr", "mse"}, each (S, n_free, B) f32.
+    (step % 15 == 0 for step in n_past..n_eval−1; plot_samples: step == 10)
+    replaces the LSTM's prediction with a GP sample of gp(h) — h = enc(x_in),
+    not the prediction — then decodes with the skip halves hoisted out of
+    the loop (`cfg.last_frame_skip`: the skips refresh from every step's
+    encode and the decode is the fused one);
+  * `diverse_metrics` scores every step's frames against the f32 ground
+    truth through K1 (ops/ssim_cuda.py) and returns {"ssim", "psnr",
+    "mse"}, each (S, n_free, B) f32; the other paths return frames.
+`posterior` decodes the GP posterior mean of the LSTM's prediction at
+every step. `gp_trigger` free-runs from x[0] without teacher forcing and
+forks a row whenever its GP variance norm leaves a rolling window's band.
 
-GP noise: `noise` (n_free, S, B, g_dim) holds eps for every step (only the
-fork steps read it). Without it, eps is drawn per fork step, in step
-order, as randn(S, B, g_dim) from a torch.Generator on the run's device
-seeded by `seed`.
+GP noise. Without `noise`, eps for (sample s, free-run step t, global row
+r) is `models.gp.fork_noise(seed, s, t, r, g_dim)`, a pure function of
+those ids: a re-roll of any subset of samples, rows or pairs reproduces
+the futures that were scored (`row_offset` shifts the row ids of a batch
+that is a slice of a larger one). `gp_trigger` draws with sample id 0 and
+the absolute step. With `cfg.full_cov_sampling` a fork draws one sample
+correlated across the B rows of each future from the same eps. `noise`
+holds eps explicitly instead (the parity tests pass the JAX package's):
+(n_free, K, B, g_dim) for the batch paths, (n_free, K, g_dim) for pairs,
+(n_eval − 12, B, g_dim) for gp_trigger; only the fork steps read it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -33,11 +46,37 @@ from dvg_tpu_torch.models.rnn import Hidden
 from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
 
 FORK_EVERY = 15
+PLOT_FORK_STEP = 10      # the train-time plot forks once, at step 10
+PLOT_SAMPLES = 5
+TRIGGER_WARMUP = 12      # the GP-trigger's fixed free-run warm-up
+TRIGGER_SKIP_FRAMES = 5  # ... whose skips come from its first 5 encodes
+
+# eps of a fork step, by the step's index
+EpsAt = Callable[[int], torch.Tensor]
 
 
 class RolloutFns(NamedTuple):
-    # (x, seed, noise, device) -> {"ssim", "psnr", "mse": (S, n_free, B)}
+    # (x, device) -> (n_eval, B, H, W, C) f32
+    posterior: Callable
+    # (x, seed, noise, device) -> (S, n_eval, B, H, W, C) f32
+    diverse: Callable
+    # (x, seed, noise, device, row_offset) ->
+    #   {"ssim", "psnr", "mse": (S, n_free, B)}
     diverse_metrics: Callable
+    # (x, sample_ids (K,), row_ids (B,), seed, noise, device) ->
+    #   (K, n_eval, B, H, W, C); refuses cfg.full_cov_sampling
+    diverse_select: Callable
+    # (x_sel (T, K, ...), sample_ids (K,), row_ids (K,), seed, noise,
+    #   device) -> (n_eval, K, H, W, C): column k replays the pair
+    #   (sample_ids[k], row_ids[k]); refuses cfg.full_cov_sampling
+    diverse_select_pairs: Callable
+    # as diverse_select over the full batch, full_cov included
+    diverse_rollout_with_keys: Callable
+    # (x, seed, noise, device) -> (5, n_eval, B, ...), fork at step 10
+    plot_samples: Callable
+    # (x, seed, noise, device) -> (frames (n_eval, B, ...), {"triggers",
+    #   "values", "thresholds": (n_eval − 12, B), "warmup_values": (12, B)})
+    gp_trigger: Callable
 
 
 def _context_phase(model: DVGModel, x: torch.Tensor, n_past: int
@@ -60,16 +99,16 @@ def fork_schedule(n_past: int, n_eval: int) -> np.ndarray:
     return np.arange(n_past, n_eval) % FORK_EVERY == 0
 
 
+def _ids(ids) -> torch.Tensor:
+    ids = torch.as_tensor(ids, dtype=torch.int64).cpu()
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be 1-D, got shape {tuple(ids.shape)}")
+    return ids
+
+
 def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
     """cfg.dtype='bfloat16' runs the convs, the LSTM and the GP sample in
-    bf16; the metrics are f32 against the f32 ground truth."""
-    if cfg.last_frame_skip:
-        raise NotImplementedError(
-            "last_frame_skip (refreshed skips) is not ported yet: ROADMAP "
-            "queue 1 item 9")
-    if cfg.full_cov_sampling:
-        raise NotImplementedError(
-            "full_cov_sampling is not ported yet: ROADMAP queue 1 item 9")
+    bf16; metrics and returned frames are f32."""
     if cfg.eval_metric != "skimage":
         raise NotImplementedError(
             f"eval_metric={cfg.eval_metric!r} is not ported yet: ROADMAP "
@@ -81,69 +120,306 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             "queue 1 item 7; set use_pallas=True")
     n_past, n_eval = cfg.n_past, cfg.n_eval
     n_free = n_eval - n_past
-    s_n = cfg.nsample
+    s_n, d = cfg.nsample, cfg.g_dim
     dtype = compute_dtype(cfg)
-    fork = fork_schedule(n_past, n_eval)
+    refresh = bool(cfg.last_frame_skip)
+    fc = bool(cfg.full_cov_sampling)
+    fork_15 = fork_schedule(n_past, n_eval)
+    fork_10 = np.arange(n_past, n_eval) == PLOT_FORK_STEP
 
-    def prep() -> Tuple[DVGModel, gp_mod.GPCache]:
+    def prep() -> Tuple[DVGModel, gp_mod.GPCache, gp_mod.GPCache]:
         """Fold eval-mode BN into the convs and build the GP cache, both in
-        f32, then cast weights and cache to the compute dtype."""
+        f32, then cast weights and cache to the compute dtype. The f32
+        cache is kept for the full-covariance draw
+        (gp.cached_rsample_fullcov)."""
         folded = model.fold_inference_params()
-        cache = folded.gp_cache().to(dtype)
-        return folded.to(dtype=dtype, memory_format=torch.channels_last), cache
+        cache32 = folded.gp_cache()
+        return (folded.to(dtype=dtype, memory_format=torch.channels_last),
+                cache32.to(dtype), cache32)
 
-    @torch.inference_mode()
-    def diverse_metrics(x, seed: int = 0, noise=None, device="cuda"
-                        ) -> Dict[str, torch.Tensor]:
+    def clip(x, device, min_t: int) -> torch.Tensor:
         dev = resolve_device(device)
         if model.device.type != dev.type:
             raise ValueError(
                 f"model is on {model.device}, the run asked for {dev}")
         x = torch.as_tensor(x, device=model.device)
-        if x.dim() != 5 or x.shape[0] < n_eval:
-            raise ValueError(f"x must be (T >= {n_eval}, B, H, W, C), got "
+        if x.dim() != 5 or x.shape[0] < min_t:
+            raise ValueError(f"x must be (T >= {min_t}, B, H, W, C), got "
                              f"{tuple(x.shape)}")
-        b = x.shape[1]
-        d = cfg.g_dim
+        return x
+
+    def grid_noise(noise, seed: int, sample_ids: torch.Tensor,
+                   row_ids: torch.Tensor) -> EpsAt:
+        """eps (K·B, D) of step t for every (sample, row) of a K × B grid,
+        sample-major."""
+        k, b = len(sample_ids), len(row_ids)
         if noise is not None:
             noise = torch.as_tensor(noise, device=model.device)
-            if tuple(noise.shape) != (n_free, s_n, b, d):
-                raise ValueError(f"noise must be {(n_free, s_n, b, d)}, got "
+            if tuple(noise.shape) != (n_free, k, b, d):
+                raise ValueError(f"noise must be {(n_free, k, b, d)}, got "
                                  f"{tuple(noise.shape)}")
-        else:
-            gen = torch.Generator(device=model.device).manual_seed(seed)
+            return lambda t: noise[t].reshape(k * b, d)
+        return lambda t: gp_mod.fork_noise(
+            seed, sample_ids[:, None], t, row_ids[None, :], d,
+            device=model.device).reshape(k * b, d)
 
-        gt = x[n_past:n_eval].float().contiguous()     # metrics vs f32 truth
-        m, cache = prep()
-        x = x.to(dtype)
+    def rollout(m: DVGModel, cache, cache32, x: torch.Tensor, k: int,
+                fork: np.ndarray, eps_at: EpsAt, mean_mode: bool = False
+                ) -> Iterator[torch.Tensor]:
+        """The free run of k futures of every clip of x (already in the
+        compute dtype), as one merged sample-major (k·B) batch; yields
+        each step's frames (k·B, H, W, C) in the compute dtype."""
         hidden_b, skip_b, x_in_b = _context_phase(m, x, n_past)
-
-        # merged sample-major batch; the hoisted skip halves are computed at
-        # batch B and tiled ONCE, so the in-loop add is shape-equal
-        hidden = tuple(a.repeat(1, s_n, 1) for a in hidden_b)
-        x_in = x_in_b.repeat(s_n, 1, 1, 1)
-        skip_pre = [p.repeat(s_n, 1, 1, 1) for p in m.decode_skip_pre(skip_b)]
-
-        out = torch.empty((3, s_n, n_free, b), dtype=torch.float32,
-                          device=model.device)
+        hidden = tuple(a.repeat(1, k, 1) for a in hidden_b)
+        x_in = x_in_b.repeat(k, 1, 1, 1)
+        # frozen skips: the skip halves are computed at batch B and tiled
+        # ONCE, so the in-loop add is shape-equal
+        skip_pre = None if refresh else [
+            p.repeat(k, 1, 1, 1) for p in m.decode_skip_pre(skip_b)]
         for t in range(n_free):
-            h, _ = m.encode(x_in)
+            h, skips_new = m.encode(x_in)
             latent, hidden = m.predict_latent(hidden, h)
-            if fork[t]:
-                if noise is None:
-                    eps = torch.randn((s_n, b, d), generator=gen,
-                                      device=model.device)
-                else:
-                    eps = noise[t]
-                eps = eps.to(dtype).reshape(s_n * b, d).transpose(0, 1)
-                latent = m.from_gp_layout(gp_mod.cached_rsample(
-                    cache, m.to_gp_layout(h), eps))
-            x_in = m.decode_hoisted(latent, skip_pre)
-            s_v, q_v, m_v = ssim_psnr_batch_cyclic(gt[t], x_in.contiguous())
+            if mean_mode:
+                mean, _ = gp_mod.cached_mean_var(cache, m.to_gp_layout(latent))
+                latent = m.from_gp_layout(mean)
+            elif fork[t]:
+                latent = draw(m, cache, cache32, h, eps_at(t), k)
+            x_in = (m.decode(latent, skips_new) if refresh
+                    else m.decode_hoisted(latent, skip_pre))
+            yield x_in
+
+    def draw(m: DVGModel, cache, cache32, h: torch.Tensor,
+             eps: torch.Tensor, groups: int) -> torch.Tensor:
+        """GP sample of gp(h) for the merged batch h (groups·B, D), eps
+        (groups·B, D): per-row marginal, or (full_cov) correlated across
+        the B rows of each group."""
+        if not fc:
+            return m.from_gp_layout(gp_mod.cached_rsample(
+                cache, m.to_gp_layout(h), eps.to(h.dtype).transpose(0, 1)))
+        b = h.shape[0] // groups
+        y = gp_mod.cached_rsample_fullcov(
+            cache32, h.reshape(groups, b, d).transpose(1, 2)[..., None],
+            eps.reshape(groups, b, d).transpose(1, 2))
+        return y.transpose(1, 2).reshape(groups * b, d)
+
+    @torch.inference_mode()
+    def sampled(x, sample_ids, row_ids, fork: np.ndarray, seed: int, noise,
+                device) -> torch.Tensor:
+        """(K, n_eval, B, H, W, C) f32: the futures of samples `sample_ids`
+        for the clips of x, whose global row ids are `row_ids`."""
+        x = clip(x, device, n_past)
+        sample_ids = _ids(sample_ids)
+        row_ids = _ids(row_ids)
+        if len(row_ids) != x.shape[1]:
+            raise ValueError(f"{len(row_ids)} row ids for {x.shape[1]} "
+                             "clips")
+        k, b = len(sample_ids), x.shape[1]
+        eps_at = grid_noise(noise, seed, sample_ids, row_ids)
+        m, cache, cache32 = prep()
+        x = x.to(dtype)
+        frames = torch.empty((n_free, k * b) + x.shape[2:],
+                             dtype=torch.float32, device=x.device)
+        for t, x_out in enumerate(rollout(m, cache, cache32, x, k, fork,
+                                          eps_at)):
+            frames[t] = x_out
+        frames = frames.reshape((n_free, k, b) + x.shape[2:]).transpose(0, 1)
+        ctx = x[:n_past].float().expand((k,) + x[:n_past].shape)
+        return torch.cat([ctx, frames], dim=1)
+
+    @torch.inference_mode()
+    def posterior(x, device="cuda") -> torch.Tensor:
+        """(T, B, H, W, C) f32: the context frames, then n_free frames each
+        decoding the GP posterior mean of the LSTM's prediction."""
+        x = clip(x, device, n_past)
+        m, cache, cache32 = prep()
+        x = x.to(dtype)
+        frames = [x_out.float() for x_out in rollout(
+            m, cache, cache32, x, 1, np.zeros(n_free, bool), None,
+            mean_mode=True)]
+        return torch.cat([x[:n_past].float(), torch.stack(frames)], dim=0)
+
+    def diverse(x, seed: int = 0, noise=None, device="cuda") -> torch.Tensor:
+        b = torch.as_tensor(x).shape[1]
+        return sampled(x, torch.arange(s_n), torch.arange(b), fork_15, seed,
+                       noise, device)
+
+    def plot_samples(x, seed: int = 0, noise=None, device="cuda"
+                     ) -> torch.Tensor:
+        b = torch.as_tensor(x).shape[1]
+        return sampled(x, torch.arange(PLOT_SAMPLES), torch.arange(b),
+                       fork_10, seed, noise, device)
+
+    def diverse_select(x, sample_ids, row_ids, seed: int = 0, noise=None,
+                       device="cuda") -> torch.Tensor:
+        """Re-roll samples `sample_ids` on the clips x, whose global row ids
+        are `row_ids`: the futures `diverse_metrics(seed=seed)` scored."""
+        if fc:
+            raise ValueError(
+                "diverse_select cannot reproduce scored futures under "
+                "cfg.full_cov_sampling: the correlated draw spans the whole "
+                "batch, so a row subset (or the same rows reordered) changes "
+                "the sample. Re-roll the whole batch with "
+                "diverse_rollout_with_keys instead.")
+        return sampled(x, sample_ids, row_ids, fork_15, seed, noise, device)
+
+    def diverse_rollout_with_keys(x, sample_ids, row_ids=None,
+                                  seed: int = 0, noise=None, device="cuda"
+                                  ) -> torch.Tensor:
+        """Full-batch re-roll of samples `sample_ids`; under
+        cfg.full_cov_sampling it reproduces the correlated draws that
+        diverse_metrics scored, since it re-rolls the whole batch."""
+        if row_ids is None:
+            row_ids = torch.arange(torch.as_tensor(x).shape[1])
+        return sampled(x, sample_ids, row_ids, fork_15, seed, noise, device)
+
+    @torch.inference_mode()
+    def diverse_select_pairs(x_sel, sample_ids, row_ids, seed: int = 0,
+                             noise=None, device="cuda") -> torch.Tensor:
+        """ONE K-batch rollout replaying K (sample, row) pairs: x_sel
+        (T, K, H, W, C) holds in column k the clip of global row
+        row_ids[k], which replays sample sample_ids[k]. → (n_eval, K, H, W,
+        C) f32. Marginal draws only."""
+        if fc:
+            raise ValueError(
+                "diverse_select_pairs replays per-row MARGINAL draws only; "
+                "under cfg.full_cov_sampling the scored draw was correlated "
+                "across the whole batch — re-roll with "
+                "diverse_rollout_with_keys on the full batch instead.")
+        x_sel = clip(x_sel, device, n_past)
+        sample_ids, row_ids = _ids(sample_ids), _ids(row_ids)
+        k = x_sel.shape[1]
+        if not len(sample_ids) == len(row_ids) == k:
+            raise ValueError(f"{len(sample_ids)} sample ids and "
+                             f"{len(row_ids)} row ids for {k} clips")
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=model.device)
+            if tuple(noise.shape) != (n_free, k, d):
+                raise ValueError(f"noise must be {(n_free, k, d)}, got "
+                                 f"{tuple(noise.shape)}")
+            eps_at = noise.__getitem__
+        else:
+            def eps_at(t):
+                return gp_mod.fork_noise(seed, sample_ids, t, row_ids, d,
+                                         device=model.device)
+        m, cache, cache32 = prep()
+        x_sel = x_sel.to(dtype)
+        frames = [x_out.float() for x_out in rollout(
+            m, cache, cache32, x_sel, 1, fork_15, eps_at)]
+        return torch.cat([x_sel[:n_past].float(), torch.stack(frames)], dim=0)
+
+    @torch.inference_mode()
+    def diverse_metrics(x, seed: int = 0, noise=None, device="cuda",
+                        row_offset: int = 0) -> Dict[str, torch.Tensor]:
+        """All S futures scored in the loop; frames never accumulate.
+        `row_offset` is the global id of x's first row, so a slice of a
+        batch draws what the full batch drew for the same rows."""
+        x = clip(x, device, n_eval)
+        b = x.shape[1]
+        eps_at = grid_noise(noise, seed, torch.arange(s_n),
+                            row_offset + torch.arange(b))
+        gt = x[n_past:n_eval].float().contiguous()     # metrics vs f32 truth
+        m, cache, cache32 = prep()
+        x = x.to(dtype)
+        out = torch.empty((3, s_n, n_free, b), dtype=torch.float32,
+                          device=x.device)
+        for t, x_out in enumerate(rollout(m, cache, cache32, x, s_n, fork_15,
+                                          eps_at)):
+            s_v, q_v, m_v = ssim_psnr_batch_cyclic(gt[t], x_out.contiguous())
             out[:, :, t] = torch.stack([s_v, q_v, m_v]).reshape(3, s_n, b)
         return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
 
-    return RolloutFns(diverse_metrics=diverse_metrics)
+    @torch.inference_mode()
+    def gp_trigger(x, seed: int = 0, noise=None, device="cuda"
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The adaptive path: free-run n_eval frames from x[0] with no
+        teacher forcing. The first 12 steps decode the LSTM's prediction
+        with the skips of the first 5 encodes and fill a per-row window of
+        ‖var‖ of gp(h); after it, a row forks to a GP sample whenever its
+        ‖var‖ exceeds mean + trigger_sigma·std − trigger_margin of the
+        rolling 12-value window, and its LSTM hidden stays stale on that
+        step. The skips stay frozen after the warm-up. The diagnostics
+        carry each step's threshold beside its value (the JAX package
+        returns the values only)."""
+        total = n_eval
+        if total < TRIGGER_WARMUP:
+            raise ValueError(
+                f"gp_trigger needs n_eval >= {TRIGGER_WARMUP} (the fixed "
+                f"{TRIGGER_WARMUP}-step free-run warmup that seeds the "
+                f"rolling threshold window) but cfg.n_eval={total}")
+        x = clip(x, device, 1)
+        b = x.shape[1]
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=model.device)
+            want = (total - TRIGGER_WARMUP, b, d)
+            if tuple(noise.shape) != want:
+                raise ValueError(f"noise must be {want}, got "
+                                 f"{tuple(noise.shape)}")
+
+        def eps_at(i: int) -> torch.Tensor:
+            if noise is not None:
+                return noise[i - TRIGGER_WARMUP]
+            return gp_mod.fork_noise(seed, 0, i, torch.arange(b), d,
+                                     device=model.device)
+
+        m, cache, cache32 = prep()
+        x = x.to(dtype)
+
+        def var_norm(h: torch.Tensor) -> torch.Tensor:
+            v = gp_mod.cached_variance(cache, m.to_gp_layout(h))   # (D, B)
+            return torch.linalg.vector_norm(v.float(), dim=0)      # (B,)
+
+        hidden = m.lstm_hidden_init(b, dtype=dtype)
+        x_in = x[0]
+        frames = torch.empty((total,) + x.shape[1:], dtype=torch.float32,
+                             device=x.device)
+        window = torch.empty((TRIGGER_WARMUP, b), dtype=torch.float32,
+                             device=x.device)
+        skip = None
+        for i in range(TRIGGER_WARMUP):
+            h, skips_i = m.encode(x_in)
+            if i < TRIGGER_SKIP_FRAMES:        # the skip updates BEFORE decode
+                skip = skips_i
+            window[i] = var_norm(h)
+            h_pred, hidden = m.predict_latent(hidden, h)
+            x_in = m.decode(h_pred, skip)
+            frames[i] = x_in
+        warmup_values = window.clone()
+        skip_pre = m.decode_skip_pre(skip)
+
+        n_trig = total - TRIGGER_WARMUP
+        triggers = torch.empty((n_trig, b), dtype=torch.bool, device=x.device)
+        values = torch.empty((n_trig, b), dtype=torch.float32,
+                             device=x.device)
+        thresholds = torch.empty_like(values)
+        for i in range(TRIGGER_WARMUP, total):
+            h, _ = m.encode(x_in)
+            value = var_norm(h)
+            window = torch.cat([window[1:], value[None]])
+            thresh = (window.mean(0)
+                      + cfg.trigger_sigma * window.std(0, correction=0)
+                      - cfg.trigger_margin)
+            h_pred, hidden_new = m.predict_latent(hidden, h)
+            sample = draw(m, cache, cache32, h, eps_at(i), 1)
+            trig = value > thresh                                   # (B,)
+            latent = torch.where(trig[:, None], sample, h_pred)
+            # triggered rows skip the LSTM step: their hidden stays stale
+            hidden = tuple(torch.where(trig[None, :, None], old, new)
+                           for old, new in zip(hidden, hidden_new))
+            x_in = m.decode_hoisted(latent, skip_pre)
+            frames[i] = x_in
+            triggers[i - TRIGGER_WARMUP] = trig
+            values[i - TRIGGER_WARMUP] = value
+            thresholds[i - TRIGGER_WARMUP] = thresh
+        return frames, {"triggers": triggers, "values": values,
+                        "thresholds": thresholds,
+                        "warmup_values": warmup_values}
+
+    return RolloutFns(posterior=posterior, diverse=diverse,
+                      diverse_metrics=diverse_metrics,
+                      diverse_select=diverse_select,
+                      diverse_select_pairs=diverse_select_pairs,
+                      diverse_rollout_with_keys=diverse_rollout_with_keys,
+                      plot_samples=plot_samples, gp_trigger=gp_trigger)
 
 
 def best_of_n(metric_bst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

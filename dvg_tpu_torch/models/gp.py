@@ -15,6 +15,7 @@ The Cholesky and the triangular inverse run in f32.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -127,6 +128,97 @@ def cached_rsample(cache: GPCache, x: torch.Tensor,
                    eps: torch.Tensor) -> torch.Tensor:
     """Marginal reparameterized sample of likelihood(gp(x)):
     mean + √(var + σ²)·eps, with eps (D, B) in task layout given by the
-    caller (the JAX package derives it from fold_in(key, row) per row)."""
+    caller (`fork_noise`, one column per (sample, row) pair). With a column
+    per pair this is also the JAX package's `cached_rsample_pairs`."""
     mean, var = cached_mean_var(cache, x)
     return mean + torch.sqrt(var + cache.noise[:, None]) * eps
+
+
+def cached_variance(cache: GPCache, x: torch.Tensor) -> torch.Tensor:
+    """Variance of likelihood(gp(x)), (D, B): the GP-trigger's signal."""
+    _, var = cached_mean_var(cache, x)
+    return var + cache.noise[:, None]
+
+
+def cached_rsample_fullcov(cache: GPCache, x: torch.Tensor,
+                           eps: torch.Tensor) -> torch.Tensor:
+    """Batch-correlated sample of likelihood(gp(x)): one draw from the full
+    (D, B, B) posterior covariance plus noise, mean + chol(cov)·eps. x is
+    (..., D, B, 1) and eps (..., D, B); leading dims are independent draws.
+
+    The covariance is assembled in f32 from the (possibly bf16) inputs and
+    the f32 cache: kxx − a·aᵀ + a_ls·a_lsᵀ cancels catastrophically near the
+    inducing set, so a bf16 assembly can leave it indefinite and the
+    Cholesky NaN. In f32 it is the exact posterior covariance of those
+    inputs, PSD by construction. The sample comes back in x's dtype."""
+    f32 = torch.float32
+    xf = x.float()
+    c = GPCache(*(t.to(f32) for t in cache))
+    kxz = rbf(c.outputscale, c.lengthscale, xf, c.z)         # (..., D, B, M)
+    a = torch.einsum("...dbm,dmn->...dbn", kxz, c.w)
+    mean = c.mean_const[:, None] + torch.einsum("...dbm,dm->...db", kxz, c.v1)
+    a_ls = torch.einsum("...dbm,dmn->...dbn", kxz, c.v2)
+    kxx = rbf(c.outputscale, c.lengthscale, xf, xf)           # (..., D, B, B)
+    cov = kxx - a @ a.transpose(-1, -2) + a_ls @ a_ls.transpose(-1, -2)
+    b = x.shape[-2]
+    eye = torch.eye(b, dtype=f32, device=x.device)
+    cov = cov + (c.noise[:, None, None] + JITTER) * eye
+    chol = torch.linalg.cholesky(cov)
+    return (mean + (chol @ eps.to(f32)[..., None])[..., 0]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GP noise as a pure function of (seed, sample, step, row, latent index)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijective 32-bit integer hash (Wellons' lowbias32 constants, both
+    below 2³¹) on Python ints or int64 tensors holding 32-bit values: every
+    product stays below 2⁶³, so the arithmetic is exact on any device."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _MASK32
+    return x ^ (x >> 15)
+
+
+def _scalar_key(*words: int) -> int:
+    h = 0
+    for w in words:
+        w = int(w)
+        h = _mix32(h ^ ((w ^ (w >> 32)) & _MASK32))
+    return h
+
+
+def fork_noise(seed: int, sample_ids, step: int, row_ids, dim: int,
+               device="cpu", dtype: torch.dtype = torch.float32
+               ) -> torch.Tensor:
+    """Standard-normal eps for every (sample, row) pair asked for:
+    `sample_ids` and `row_ids` broadcast against each other, and the result
+    has their broadcast shape + (dim,).
+
+    eps[..., d] is a pure function of (seed, sample id, step, global row id,
+    d): integer hashing into two 24-bit uniforms, then Box–Muller in f64. It
+    does not depend on which other pairs are in the call or on the device
+    (CPU and card agree to the last f32 ulp of the f64 log/cos), so a
+    re-roll of any subset of pairs reproduces the draws of the full run.
+    One hash over a (pairs, 2·dim) int64 tensor plus the Box–Muller
+    transform: about twenty elementwise kernels per call."""
+    dev = torch.device(device)
+    ids = torch.broadcast_tensors(
+        torch.as_tensor(sample_ids, dtype=torch.int64, device=dev),
+        torch.as_tensor(row_ids, dtype=torch.int64, device=dev))
+    salt = torch.tensor(_scalar_key(0x5EED, seed, step), device=dev)
+    pair = _mix32(salt ^ (ids[0] & _MASK32))
+    pair = _mix32(pair ^ _mix32(ids[1] & _MASK32))
+    lane = _mix32(torch.arange(2 * dim, dtype=torch.int64, device=dev)
+                  + 0x9E3779B)
+    bits = _mix32(pair[..., None] ^ lane) >> 8               # 24-bit
+    u = bits.to(torch.float64).unflatten(-1, (dim, 2))
+    u1 = (u[..., 0] + 1.0) * 2.0 ** -24                       # (0, 1]
+    u2 = u[..., 1] * 2.0 ** -24                               # [0, 1)
+    eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return eps.to(dtype)

@@ -1,6 +1,7 @@
 """SSIM / PSNR / MSE in plain PyTorch (counterpart of `dvg_tpu/ops/ssim.py`)
-and the plain version of the cyclic metric kernel K1
-(`dvg_tpu/ops/pallas_ssim.py::_kernel_pre`).
+and the plain versions of the metric kernels K1 (cyclic gt,
+`dvg_tpu/ops/pallas_ssim.py::_kernel_pre`) and K2 (one-to-one pairs,
+`pallas_ssim.py::_kernel`).
 
 skimage ≤0.17 compare_ssim / compare_psnr semantics for float images:
 uniform 7×7 window, unbiased local covariances (cov_norm = 49/48),
@@ -9,8 +10,9 @@ PSNR = 10·log10(4 / max(mse, 1e-12)). Multi-channel images are scored per
 (image, channel) and averaged over channels, so PSNR is the mean of the
 per-channel PSNRs.
 
-`ssim_psnr_cyclic_plain` is what the CPU path runs and what the card's
-kernel (ops/ssim_cuda.py) is held against.
+`ssim_psnr_cyclic_plain` (K1) and `ssim_psnr_images_plain` (K2) are what
+the CPU path runs and what the card's kernels (ops/ssim_cuda.py) are held
+against.
 """
 
 from __future__ import annotations
@@ -128,33 +130,62 @@ def gt_box_moments(gt: torch.Tensor) -> Triple:
     return mg.contiguous(), box(gc).contiguous(), box(gc * gc).contiguous()
 
 
-def ssim_psnr_cyclic_plain(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
-    """Per-image metrics in the diverse layout: gt (B, H, W, C), pred
-    (S·B, H, W, C) sample-major, so pred row p scores against gt row p % B.
-    Returns (ssim, psnr, mse), each (S·B,) f32 and averaged over channels.
-
-    The same arithmetic as the kernel: centred moments (gt centred by
-    `gt_box_moments`' mean, pred by its own), box(pc), box(pc²), box(gc·pc)
-    on the pred side, the precomputed box(gc), box(gc²) on the gt side,
-    and the direct Σ(g − p)² MSE."""
-    b, h, w, c = gt.shape
-    n = pred.shape[0]
-    if n % b:
-        raise ValueError(f"pred rows {n} are not a multiple of gt rows {b}")
-    mg, gux, gxx = gt_box_moments(gt)
-    shape = (b, c, h, w)
-    g = gt.float().permute(0, 3, 1, 2)                      # (B, C, H, W)
-    p = pred.float().permute(0, 3, 1, 2).reshape((n // b,) + shape)
-    mg = mg.reshape(b, c, 1, 1)
-    gux = gux.reshape(b, c, h - WIN + 1, w - WIN + 1)
-    gxx = gxx.reshape(b, c, h - WIN + 1, w - WIN + 1)
+def _centred_metrics(g: torch.Tensor, p: torch.Tensor, mg: torch.Tensor,
+                     gux: torch.Tensor, gxx: torch.Tensor) -> Triple:
+    """The kernels' arithmetic on (..., C, H, W) f32 planes, given the gt
+    side's mean mg (..., C, 1, 1) and its boxed centred moments gux =
+    box(gt − mg), gxx = box((gt − mg)²), each (..., C, H', W'): pred centred
+    by its own mean, box(pc), box(pc²), box(gc·pc), the SSIM map from the
+    centred moments, and the direct Σ(g − p)² MSE. → (ssim, psnr, mse),
+    each (...) averaged over channels."""
     mp = p.mean(dim=(-2, -1), keepdim=True)
     gc, pc = g - mg, p - mp
     buy, byy, bxy = box(pc), box(pc * pc), box(gc * pc)
     cov = _cov_norm(WIN)
     s_map = _ssim_map(gux + mg, buy + mp, cov * (gxx - gux * gux),
                       cov * (byy - buy * buy), cov * (bxy - gux * buy))
-    ssim_v = s_map.mean(dim=(-2, -1))                       # (S, B, C)
+    ssim_v = s_map.mean(dim=(-2, -1))
     mse = ((g - p) ** 2).mean(dim=(-2, -1))
-    return (ssim_v.mean(-1).reshape(n), _psnr(mse).mean(-1).reshape(n),
-            mse.mean(-1).reshape(n))
+    return ssim_v.mean(-1), _psnr(mse).mean(-1), mse.mean(-1)
+
+
+def ssim_psnr_cyclic_plain(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
+    """K1's plain version. Per-image metrics in the diverse layout: gt
+    (B, H, W, C), pred (S·B, H, W, C) sample-major, so pred row p scores
+    against gt row p % B. Returns (ssim, psnr, mse), each (S·B,) f32 and
+    averaged over channels.
+
+    The same arithmetic as the kernel: gt centred by `gt_box_moments`'
+    mean, whose precomputed box(gc), box(gc²) serve every sample."""
+    b, h, w, c = gt.shape
+    n = pred.shape[0]
+    if n % b:
+        raise ValueError(f"pred rows {n} are not a multiple of gt rows {b}")
+    mg, gux, gxx = gt_box_moments(gt)
+    hp, wp = h - WIN + 1, w - WIN + 1
+    g = gt.float().permute(0, 3, 1, 2)                      # (B, C, H, W)
+    p = pred.float().permute(0, 3, 1, 2).reshape(n // b, b, c, h, w)
+    out = _centred_metrics(g, p, mg.reshape(b, c, 1, 1),
+                           gux.reshape(b, c, hp, wp),
+                           gxx.reshape(b, c, hp, wp))
+    return tuple(t.reshape(n) for t in out)
+
+
+# ---------------------------------------------------------------------------
+# K2: the one-to-one metric, plain version
+# ---------------------------------------------------------------------------
+
+def ssim_psnr_images_plain(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
+    """K2's plain version: gt and pred (N, H, W, C), pred image n scored
+    against gt image n → (ssim, psnr, mse), each (N,) f32 averaged over
+    channels. The same arithmetic as the kernel, which computes each gt
+    plane's mean and boxed centred moments in place (each gt plane is
+    scored once, so nothing is precomputed)."""
+    if gt.shape != pred.shape:
+        raise ValueError(f"gt {tuple(gt.shape)} and pred {tuple(pred.shape)} "
+                         "differ")
+    g = gt.float().permute(0, 3, 1, 2)                      # (N, C, H, W)
+    p = pred.float().permute(0, 3, 1, 2)
+    mg = g.mean(dim=(-2, -1), keepdim=True)
+    gc = g - mg
+    return _centred_metrics(g, p, mg, box(gc), box(gc * gc))

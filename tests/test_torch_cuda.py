@@ -1,23 +1,31 @@
 """The port's hand-written kernels on the card, against their plain
-versions. Imports nothing of JAX, so it also runs where JAX is absent:
+versions, and the card's generation and checkpoint paths against the CPU's.
+Imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Every test here needs a CUDA card and nvcc (marker `gpu`) and skips
 without one; the CPU parity of the same code is in the other
 tests/test_torch_*.py files. Tolerances as chip_smoke.py states them:
-K1 against plain SSIM atol 1e-4, PSNR atol 1e-3 dB, MSE rtol 1e-5; the tiny
-f32 slice card against CPU SSIM 1e-4, PSNR 1e-3 dB, MSE rtol 1e-4."""
+K1 and K2 against plain SSIM atol 1e-4, PSNR atol 1e-3 dB, MSE rtol 1e-5;
+the tiny f32 slice card against CPU SSIM 1e-4, PSNR 1e-3 dB, MSE rtol 1e-4;
+gp_trigger card against CPU equal masks, frames atol 1e-4, values rtol
+1e-4."""
 
 import numpy as np
 import pytest
 import torch
 
+from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
 from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.generate.rollout import make_rollout_fns
 from dvg_tpu_torch.models.dvg import DVGModel
 from dvg_tpu_torch.ops import ssim as plain
-from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                         ssim_psnr_batch_images)
+
+TINY = dict(channels=3, batch_size=2, n_past=2, n_eval=17, g_dim=16,
+            rnn_size=64, num_inducing_points=8, nsample=3, use_pallas=True)
 
 pytestmark = pytest.mark.gpu
 
@@ -76,9 +84,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_tiny_slice_card_matches_cpu(cuda):
-    cfg = DVGConfig(channels=3, batch_size=2, n_past=2, n_eval=17, g_dim=16,
-                    rnn_size=64, num_inducing_points=8, nsample=3,
-                    use_pallas=True)
+    cfg = DVGConfig(**TINY)
     rng = np.random.RandomState(0)
     x = rng.rand(17, 2, 64, 64, 3).astype(np.float32)
     noise = rng.randn(15, 3, 2, 16).astype(np.float32)
@@ -89,3 +95,109 @@ def test_tiny_slice_card_matches_cpu(cuda):
                                                            device=dev)
         out[dev] = [res[k] for k in ("ssim", "psnr", "mse")]
     _close(out["cuda"], out["cpu"], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K2: one-to-one pairs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(64, 3), (7, 1)])
+def test_images_kernel_matches_plain(cuda, dtype, n, c):
+    gt, pred = _pair(cuda, n, 1, c, dtype)
+    before = ssim_psnr_batch_images.launches
+    got = ssim_psnr_batch_images(gt, pred)
+    torch.cuda.synchronize()
+    assert ssim_psnr_batch_images.launches == before + 1
+    assert all(t.shape == (n,) for t in got)
+    _close(got, plain.ssim_psnr_images_plain(gt, pred), 1e-5)
+
+
+def test_images_kernel_identical_images(cuda):
+    gt, _ = _pair(cuda, 8, 1, 3, torch.float32)
+    same = gt.to(torch.bfloat16)
+    s, q, m = ssim_psnr_batch_images(same.float(), same)
+    assert (s - 1).abs().max() <= 1e-4
+    assert m.max().item() == 0.0 and q.min().item() > 100.0
+
+
+def test_images_kernel_refuses_what_it_does_not_take(cuda):
+    gt, pred = _pair(cuda, 4, 1, 3, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssim_psnr_batch_images(gt, pred.transpose(1, 2))
+    with pytest.raises(TypeError, match="float32"):
+        ssim_psnr_batch_images(gt.half(), pred)
+    with pytest.raises(ValueError, match="same CUDA device"):
+        ssim_psnr_batch_images(gt, pred.cpu())
+    with pytest.raises(ValueError, match="pair by pair"):
+        ssim_psnr_batch_images(gt, torch.cat([pred, pred]))
+
+
+# ---------------------------------------------------------------------------
+# generation and checkpoints, card against CPU
+# ---------------------------------------------------------------------------
+
+def _trained_gp(model, seed):
+    """Weights at unit gain per layer, spread inducing points and a
+    non-identity variational Cholesky: at the init's std 0.02 and L_S = I
+    the GP variance barely moves and no margin splits the decisions."""
+    rng = np.random.RandomState(seed)
+    d, m = model.gp.var_mean.shape
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.ConvTranspose2d):
+                fan = mod.weight.shape[0] * mod.weight[0, 0].numel() // 4
+            elif isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+                fan = mod.weight[0].numel()
+            else:
+                continue
+            mod.weight.mul_(1.0 / (0.02 * np.sqrt(fan)))
+        model.gp.z.copy_(torch.tensor(
+            np.linspace(-1, 1, m)[None, :, None]
+            + rng.uniform(-0.03, 0.03, (d, m, 1)), dtype=torch.float32))
+        model.gp.var_chol.copy_(torch.tensor(
+            np.eye(m) * rng.uniform(0.2, 0.6, (d, 1, m))
+            + np.tril(rng.normal(0, 0.1, (d, m, m)), -1),
+            dtype=torch.float32))
+        model.gp.raw_lengthscale.fill_(-1.2)
+    return model
+
+
+def test_gp_trigger_card_matches_cpu(cuda):
+    cfg = DVGConfig(**TINY)
+    x = np.random.RandomState(1).rand(17, 2, 64, 64, 3).astype(np.float32)
+    cpu = _trained_gp(DVGModel(cfg, seed=0, device="cpu"), seed=2)
+    card = DVGModel(cfg, seed=0, device="cpu")
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    # among the margins at which some but not all decisions fire, the one
+    # whose nearest decision sits farthest from its threshold
+    runs = []
+    for margin in (0.0, 1e-3, 3e-3, 1e-2, 3e-2, 0.1):
+        fr, diag = make_rollout_fns(cpu, cfg.replace(trigger_margin=margin)
+                                    ).gp_trigger(x, seed=3, device="cpu")
+        gap = (diag["values"] - diag["thresholds"]).abs().min().item()
+        if diag["triggers"].any() and not diag["triggers"].all():
+            runs.append((gap, margin, fr, diag))
+    gap, margin, fr, diag = max(runs, key=lambda r: r[0])
+    fr_c, diag_c = make_rollout_fns(card, cfg.replace(trigger_margin=margin)
+                                    ).gp_trigger(x, seed=3, device="cuda")
+    assert torch.equal(diag_c["triggers"].cpu(), diag["triggers"])
+    assert (fr_c.cpu() - fr).abs().max() <= 1e-4
+    for k in ("values", "warmup_values"):
+        assert ((diag_c[k].cpu() - diag[k]).abs() / diag[k]).max() <= 1e-4
+    d = (diag_c["values"] - diag_c["thresholds"]).cpu() \
+        - (diag["values"] - diag["thresholds"])
+    assert gap >= 10 * d.abs().max().item()
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    cfg = DVGConfig(**TINY)
+    model = DVGModel(cfg, seed=4, device="cuda")
+    path = save_checkpoint(str(tmp_path), cfg, model)
+    cfg2, loaded = load_model(path, device="cuda")
+    assert cfg2 == cfg and loaded.device.type == "cuda"
+    want, got = model.state_dict(), loaded.state_dict()
+    assert want.keys() == got.keys()
+    for k in want:
+        assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k

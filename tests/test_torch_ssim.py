@@ -1,11 +1,13 @@
-"""Port parity: the plain-PyTorch metrics and the plain version of K1
-(`ssim_psnr_cyclic_plain`, what the CPU path runs and what the card's
-kernel is held against) against `dvg_tpu` on the CPU.
+"""Port parity: the plain-PyTorch metrics and the plain versions of K1
+(`ssim_psnr_cyclic_plain`) and K2 (`ssim_psnr_images_plain`) — what the CPU
+path runs and what the card's kernels are held against — against
+`dvg_tpu` on the CPU.
 
 K1's plain version is held to the interpret-mode Pallas kernel
 (`ssim_psnr_batch_pallas_cyclic(..., interpret=True)`, as
 tests/test_pallas_ssim.py runs it) and to `dvg_tpu.ops.ssim.ssim_psnr_batch`
-on tiled gt. Tolerances: SSIM atol 1e-5 (tighter than the 5e-4 the Pallas
+on tiled gt; K2's to `ssim_psnr_batch_pallas(..., interpret=True)` and to
+`ssim_psnr_batch` on the same pairs. Tolerances: SSIM atol 1e-5 (tighter than the 5e-4 the Pallas
 tests hold), PSNR atol 1e-3 dB, MSE rtol 1e-5. The kernel itself runs only
 on a card: tests/test_torch_cuda.py compares it with the plain version
 there."""
@@ -17,9 +19,11 @@ import torch
 import jax.numpy as jnp
 
 from dvg_tpu.ops import ssim as jssim
-from dvg_tpu.ops.pallas_ssim import ssim_psnr_batch_pallas_cyclic
+from dvg_tpu.ops.pallas_ssim import (ssim_psnr_batch_pallas,
+                                     ssim_psnr_batch_pallas_cyclic)
 from dvg_tpu_torch.ops import ssim as tssim
-from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                         ssim_psnr_batch_images)
 
 SSIM_ATOL, PSNR_ATOL, MSE_RTOL = 1e-5, 1e-3, 1e-5
 
@@ -125,3 +129,50 @@ def test_wrapper_rejects_bad_shapes():
         ssim_psnr_batch_cyclic(torch.from_numpy(gt),
                                torch.from_numpy(pred[..., :1].copy()))
 
+
+# ---------------------------------------------------------------------------
+# K2: one-to-one pairs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,c", [(5, 3), (9, 1)])
+def test_images_plain_matches_pallas_interpret(n, c):
+    """N not a multiple of the Pallas block of 8: its wrapper pads with
+    all-ones images, the port has no padding."""
+    gt, pred = _pair(8, n, 1, c)
+    ref = ssim_psnr_batch_pallas(jnp.asarray(gt), jnp.asarray(pred),
+                                 interpret=True)
+    _check(tssim.ssim_psnr_images_plain(torch.from_numpy(gt),
+                                        torch.from_numpy(pred)), *ref)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_images_plain_matches_xla(c):
+    gt, pred = _pair(9, 6, 1, c)
+    ref_s, ref_q = jssim.ssim_psnr_batch(jnp.asarray(gt), jnp.asarray(pred))
+    ref_m = np.mean((gt - pred) ** 2, axis=(1, 2, 3))
+    _check(tssim.ssim_psnr_images_plain(torch.from_numpy(gt),
+                                        torch.from_numpy(pred)),
+           ref_s, ref_q, ref_m)
+
+
+def test_images_plain_bf16_pred_matches_pallas_interpret():
+    gt, pred = _pair(10, 4, 1, 3)
+    pred_t = torch.from_numpy(pred).to(torch.bfloat16)
+    pred_j = jnp.asarray(pred_t.float().numpy()).astype(jnp.bfloat16)
+    ref = ssim_psnr_batch_pallas(jnp.asarray(gt), pred_j, interpret=True)
+    _check(tssim.ssim_psnr_images_plain(torch.from_numpy(gt), pred_t), *ref)
+
+
+def test_images_wrapper_on_cpu_runs_plain_and_counts_nothing():
+    gt, pred = _pair(11, 3, 1, 3)
+    g, p = torch.from_numpy(gt), torch.from_numpy(pred)
+    before = ssim_psnr_batch_images.launches
+    for a, r in zip(ssim_psnr_batch_images(g, p),
+                    tssim.ssim_psnr_images_plain(g, p)):
+        assert torch.equal(a, r)
+    assert ssim_psnr_batch_images.launches == before
+    s, q, m = ssim_psnr_batch_images(g, g.clone())
+    np.testing.assert_allclose(s.numpy(), 1.0, atol=1e-5)
+    assert np.all(q.numpy() > 100.0) and np.all(m.numpy() == 0.0)
+    with pytest.raises(ValueError, match="pair by pair"):
+        ssim_psnr_batch_images(g, torch.cat([p, p]))
