@@ -6,14 +6,17 @@
 Phases, each failing the run (non-zero exit, no result line) on a mismatch:
   1. environment: card name and power limit, versions; builds every kernel
      of the port from the sources in this checkout and prints the build
-     seconds and ptxas' resource lines, by kernel;
-  2. K1 (csrc/ssim_cyclic.cu, cyclic mode) against its plain PyTorch version
-     on the card at the headline step shape (gt (50,64,64,3) f32, pred
-     (5000,64,64,3) bf16) and on identical images; times the kernel and the
-     plain version;
-  3. K2 (the same source, one-to-one mode) against its plain version at
-     5000 image pairs of 64×64×3, pred bf16 and f32, and on identical
-     images; times the kernel, its wrapper and the plain version;
+     seconds and ptxas' registers and spills per kernel instance (a spill
+     fails the run once the other phases have run);
+  2. K1 (csrc/ssim_cyclic.cu, cyclic gt) against its plain PyTorch version
+     on the card at the headline step shape (gt (50,H,H,3) f32, pred
+     (5000,H,H,3) bf16) at H = 64 and 128, on identical images and with
+     f32 pred; times the kernel, its wrapper and the plain version, with
+     the bound, the share of it, the sample group G and the resident
+     blocks per SM;
+  3. K2 (the same template, one-to-one) against its plain version at 5000
+     image pairs of H×H×3, H = 64 and 128, pred bf16 and f32, and on
+     identical images; the same timings;
   4. checkpoint: writes the headline DCGAN-64 model from seeded weights in
      the dvg_tpu format and reads it back, every leaf equal; the later
      phases load their model from this file;
@@ -46,6 +49,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,8 +72,9 @@ TINY = dict(channels=3, image_width=64, g_dim=16, rnn_size=64,
             batch_size=2, dtype="float32", use_pallas=True)
 
 K2_IMAGES = 5000          # one-to-one pairs in the K2 phase
+SIDES = (64, 128)         # image sides of the kernel phases: DCGAN-64, -128
 GIF_ROWS = 10             # the eval CLI's re-roll: rows × [best + 3 random]
-MAIN_MS_BEFORE = 1483.6   # PERF.md §5: the protocol before the seeded noise
+MAIN_MS_BEFORE = 1490.3   # PERF.md §5: the protocol with per-plane kernels
 MAIN_SEED = 3             # the main run's seed, which the re-roll replays
 
 K1_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
@@ -103,32 +108,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_cost(n: int, b: int, h: int, w: int, c: int, pred_bytes: int,
+def k1_cost(s_n: int, b: int, h: int, w: int, c: int, pred_bytes: int,
             win: int = 7):
-    """(bytes, f32 operations) K1 must at least move and do for one launch:
-    each input read once (gt f32, pred, the gt mean and two gt moment maps),
-    each output written once (three f32 per plane); per plane, staging and
-    squared error (8 per pixel), running-sum 7-wide boxes of three moments
-    in both directions (3 per output each), and the SSIM epilogue (25 per
-    map pixel)."""
+    """(bytes, f32 operations) K1 must at least move and do for one launch
+    scoring S·B pred images against B gt images: pred and gt (f32) each
+    read once, three f32 per pred image written. Per pred plane: staging,
+    sums and squared error (8 per pixel), running-sum 7-wide boxes of pc,
+    pc², gc·pc in both directions (3 per output each) and the SSIM map (25
+    per map pixel); per gt plane, once: its mean and centring (4 per pixel)
+    and the boxes of gc, gc² (3 per output each). K2 is the case S = 1."""
     hp, wp = h - win + 1, w - win + 1
-    planes, gplanes = n * c, b * c
-    nbytes = (n * h * w * c * pred_bytes + b * h * w * c * 4
-              + gplanes * (1 + 2 * hp * wp) * 4 + 3 * planes * 4)
-    flops = planes * (8 * h * w + 9 * h * wp + 9 * hp * wp + 25 * hp * wp)
-    return nbytes, flops
-
-
-def k2_cost(n: int, h: int, w: int, c: int, pred_bytes: int, win: int = 7):
-    """(bytes, f32 operations) K2 must at least move and do for one launch:
-    gt (f32) and pred read once, three f32 per plane written; per plane,
-    staging and squared error (8 per pixel), running-sum 7-wide boxes of
-    five moments in both directions (3 per output each), and the SSIM
-    epilogue (25 per map pixel)."""
-    hp, wp = h - win + 1, w - win + 1
-    planes = n * c
-    nbytes = n * h * w * c * (4 + pred_bytes) + 3 * planes * 4
-    flops = planes * (8 * h * w + 15 * h * wp + 15 * hp * wp + 25 * hp * wp)
+    n = s_n * b
+    nbytes = n * h * w * c * pred_bytes + b * h * w * c * 4 + 3 * n * 4
+    flops = (n * c * (8 * h * w + 9 * h * wp + 9 * hp * wp + 25 * hp * wp)
+             + b * c * (4 * h * w + 6 * h * wp + 6 * hp * wp))
     return nbytes, flops
 
 
@@ -215,115 +208,142 @@ def phase_environment():
     return resources
 
 
+def spills(resources) -> list:
+    """ptxas lines that report a spill, by kernel instance."""
+    return [f"{entry}: {line}" for entry, lines in resources.items()
+            for line in lines if re.search(r"\b[1-9]\d* bytes spill", line)]
+
+
 def kernel_label(mangled: str) -> str:
-    """'K1 bf16' etc. for a mangled ssim_kernel<T, kOwnGt> instance."""
-    if "ssim_kernel" not in mangled:
+    """'ssim_kernel bf16 C3 G2' etc. for a mangled ssim_kernel<T, C, G>
+    instance (K1 runs the G2 instances, K2 the G1 instances)."""
+    m = re.search(r"ssim_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
+    if m is None:
         return mangled
-    mode = "K2" if "Lb1E" in mangled else "K1"
-    return f"{mode} {'bf16' if 'bfloat16' in mangled else 'f32'}"
+    dtype = "f32" if m.group(1) == "f" else "bf16"
+    return f"ssim_kernel {dtype} C{m.group(2)} G{m.group(3)}"
+
+
+def kernel_inputs(dev, s_n: int, b: int, side: int, c: int, seed: int):
+    """gt (b, side, side, c) f32 and a correlated bf16 pred (s_n·b, ...)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gt = torch.rand((b, side, side, c), generator=g, device=dev)
+    pred = (0.6 * gt.repeat(s_n, 1, 1, 1)
+            + 0.4 * torch.rand((s_n * b, side, side, c), generator=g,
+                               device=dev)).to(torch.bfloat16)
+    return gt, pred
+
+
+def check_identical(tag: str, fn, gt) -> None:
+    """Identical images (gt made bf16-representable): SSIM 1, MSE 0."""
+    import torch
+    same = gt.to(torch.bfloat16)
+    s_v, q_v, m_v = fn(same.float(), same)
+    torch.cuda.synchronize()
+    d1 = (s_v - 1).abs().max().item()
+    print(f"{tag} identical images: max|ssim-1| {d1:.3e}  max mse "
+          f"{m_v.max().item():.3e}  min psnr {q_v.min().item():.1f} dB")
+    check(d1 <= 1e-4 and m_v.max().item() == 0.0, f"{tag} identical images")
 
 
 def phase_k1():
-    """K1 against its plain version at the headline step shape."""
+    """K1 against its plain version at the headline step shape (gt (50, H,
+    H, 3) f32, pred (5000, H, H, 3) bf16) at H = 64 and 128, on identical
+    images and with f32 pred; times the kernel, its wrapper and the plain
+    version."""
     import torch
     from dvg_tpu_torch.ops import ssim as plain
     from dvg_tpu_torch.ops import ssim_cuda
-    dev = torch.device(CARD)
-    s_n, b, hw, c = HEADLINE["nsample"], HEADLINE["batch_size"], 64, 3
-    g = torch.Generator(device=dev).manual_seed(0)
-    gt = torch.rand((b, hw, hw, c), generator=g, device=dev)
-    pred = (0.6 * gt.repeat(s_n, 1, 1, 1)
-            + 0.4 * torch.rand((s_n * b, hw, hw, c), generator=g,
-                               device=dev)).to(torch.bfloat16)
-    got = ssim_cuda.ssim_psnr_batch_cyclic(gt, pred)
-    torch.cuda.synchronize()
-    ref = plain.ssim_psnr_cyclic_plain(gt, pred)
-    errs = max_errs(got, ref)
-    print(f"[k1] headline step {tuple(pred.shape)} bf16 vs plain: "
-          f"max|dssim| {errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  "
-          f"max rel dmse {errs[2]:.3e}  (tol {K1_TOL})")
-    check(within(errs, K1_TOL), f"K1 disagrees with its plain version: {errs}")
-    check(all(torch.isfinite(t).all() for t in got), "K1 output not finite")
+    s_n, b, c = HEADLINE["nsample"], HEADLINE["batch_size"], 3
+    result = None
+    for side in SIDES:
+        tag = f"[k1 {side}px]"
+        gt, pred = kernel_inputs(torch.device(CARD), s_n, b, side, c, seed=0)
+        got = ssim_cuda.ssim_psnr_batch_cyclic(gt, pred)
+        torch.cuda.synchronize()
+        errs = max_errs(got, plain.ssim_psnr_cyclic_plain(gt, pred))
+        print(f"{tag} headline step {tuple(pred.shape)} bf16 vs plain: "
+              f"max|dssim| {errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  "
+              f"max rel dmse {errs[2]:.3e}  (tol {K1_TOL})")
+        check(within(errs, K1_TOL), f"K1 {side}px disagrees with its plain "
+              f"version: {errs}")
+        check(all(torch.isfinite(t).all() for t in got), "K1 not finite")
+        check_identical(tag, lambda g, p: ssim_cuda.ssim_psnr_batch_cyclic(
+            g, p.repeat(4, 1, 1, 1)), gt)
+        pred32 = pred[:4 * b].float()       # f32 pred, as the f32 path has it
+        errs32 = max_errs(ssim_cuda.ssim_psnr_batch_cyclic(gt, pred32),
+                          plain.ssim_psnr_cyclic_plain(gt, pred32))
+        print(f"{tag} f32 pred vs plain: {errs32[:3]}")
+        check(within(errs32, K1_TOL), f"K1 {side}px f32 pred: {errs32}")
 
-    # identical images (gt bf16-representable): SSIM 1, MSE 0
-    same = gt.to(torch.bfloat16)
-    s_v, q_v, m_v = ssim_cuda.ssim_psnr_batch_cyclic(
-        same.float(), same.repeat(4, 1, 1, 1))
-    torch.cuda.synchronize()
-    d1 = (s_v - 1).abs().max().item()
-    print(f"[k1] identical images: max|ssim-1| {d1:.3e}  max mse "
-          f"{m_v.max().item():.3e}  min psnr {q_v.min().item():.1f} dB")
-    check(d1 <= 1e-4 and m_v.max().item() == 0.0, "K1 identical-image case")
-
-    # f32 pred, as the f32 path hands it over
-    pred32 = pred[:4 * b].float()
-    errs32 = max_errs(ssim_cuda.ssim_psnr_batch_cyclic(gt, pred32),
-                      plain.ssim_psnr_cyclic_plain(gt, pred32))
-    print(f"[k1] f32 pred vs plain: {errs32[:3]}")
-    check(within(errs32, K1_TOL), f"K1 f32 pred disagrees: {errs32}")
-
-    mg, gux, gxx = plain.gt_box_moments(gt)
-    k_ms = cuda_ms(lambda: ssim_cuda.launch(gt, pred, mg, gux, gxx), 20)
-    w_ms = cuda_ms(lambda: ssim_cuda.ssim_psnr_batch_cyclic(gt, pred), 20)
-    p_ms = cuda_ms(lambda: plain.ssim_psnr_cyclic_plain(gt, pred), 5)
-    nbytes, flops = k1_cost(s_n * b, b, hw, hw, c, pred.element_size())
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"[k1] kernel {k_ms * 1e3:.1f} us/launch  wrapper (with gt "
-          f"precompute and channel mean) {w_ms * 1e3:.1f} us  plain "
-          f"{p_ms * 1e3:.1f} us  bound {b_ms * 1e3:.1f} us by {b_by} "
-          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)  "
-          f"= {b_ms / k_ms:.1%} of bound")
-    return dict(max_abs_err=errs[3], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+        k_ms = cuda_ms(lambda: ssim_cuda.launch(gt, pred), 20)
+        w_ms = cuda_ms(lambda: ssim_cuda.ssim_psnr_batch_cyclic(gt, pred), 20)
+        p_ms = cuda_ms(lambda: plain.ssim_psnr_cyclic_plain(gt, pred), 5)
+        nbytes, flops = k1_cost(s_n, b, side, side, c, pred.element_size())
+        b_ms, b_by = bound(nbytes, flops)
+        blocks, threads = ssim_cuda.occupancy(pred.dtype, c, side, side)
+        print(f"{tag} kernel {k_ms * 1e3:.1f} us/launch (G "
+              f"{ssim_cuda.GROUP}; {blocks} resident blocks/SM x {threads} "
+              f"threads)  wrapper "
+              f"{w_ms * 1e3:.1f} us (wrapper - kernel "
+              f"{(w_ms - k_ms) * 1e3:.1f} us)  plain {p_ms * 1e3:.1f} us  "
+              f"bound {b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)  = {b_ms / k_ms:.1%} of bound")
+        if result is None:                  # the main path's shape
+            result = dict(max_abs_err=errs[3], ms=k_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        del gt, pred, pred32
+        torch.cuda.empty_cache()
+    return result
 
 
 def phase_k2(resources):
-    """K2 against its plain version: K2_IMAGES one-to-one pairs of 64×64×3,
-    f32 gt, pred bf16 and f32."""
+    """K2 against its plain version: K2_IMAGES one-to-one pairs of H×H×3
+    at H = 64 and 128, f32 gt, pred bf16 and f32; identical images; times
+    the kernel, its wrapper and the plain version."""
     import torch
     from dvg_tpu_torch.ops import ssim as plain
     from dvg_tpu_torch.ops import ssim_cuda
-    dev = torch.device(CARD)
-    n, hw, c = K2_IMAGES, 64, 3
-    g = torch.Generator(device=dev).manual_seed(5)
-    gt = torch.rand((n, hw, hw, c), generator=g, device=dev)
-    pred32 = 0.6 * gt + 0.4 * torch.rand((n, hw, hw, c), generator=g,
-                                         device=dev)
-    pred = pred32.to(torch.bfloat16)
-    worst = 0.0
-    for name, p in (("bf16", pred), ("f32", pred32)):
-        got = ssim_cuda.ssim_psnr_batch_images(gt, p)
-        torch.cuda.synchronize()
-        errs = max_errs(got, plain.ssim_psnr_images_plain(gt, p))
-        print(f"[k2] {n} pairs {tuple(p.shape)} {name} pred vs plain: "
-              f"max|dssim| {errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  "
-              f"max rel dmse {errs[2]:.3e}  (tol {K1_TOL})")
-        check(within(errs, K1_TOL),
-              f"K2 ({name} pred) disagrees with its plain version: {errs}")
-        check(all(torch.isfinite(t).all() for t in got), "K2 output not finite")
-        worst = max(worst, errs[3])
+    n, c = K2_IMAGES, 3
+    result = None
+    for side in SIDES:
+        tag = f"[k2 {side}px]"
+        gt, pred = kernel_inputs(torch.device(CARD), 1, n, side, c, seed=5)
+        worst = 0.0
+        for name, p in (("bf16", pred), ("f32", pred.float())):
+            got = ssim_cuda.ssim_psnr_batch_images(gt, p)
+            torch.cuda.synchronize()
+            errs = max_errs(got, plain.ssim_psnr_images_plain(gt, p))
+            print(f"{tag} {n} pairs {tuple(p.shape)} {name} pred vs plain: "
+                  f"max|dssim| {errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  "
+                  f"max rel dmse {errs[2]:.3e}  (tol {K1_TOL})")
+            check(within(errs, K1_TOL),
+                  f"K2 {side}px ({name} pred) disagrees: {errs}")
+            check(all(torch.isfinite(t).all() for t in got), "K2 not finite")
+            worst = max(worst, errs[3])
+        check_identical(tag, ssim_cuda.ssim_psnr_batch_images, gt[:64])
 
-    same = gt[:64].to(torch.bfloat16)
-    s_v, q_v, m_v = ssim_cuda.ssim_psnr_batch_images(same.float(), same)
-    torch.cuda.synchronize()
-    d1 = (s_v - 1).abs().max().item()
-    print(f"[k2] identical images: max|ssim-1| {d1:.3e}  max mse "
-          f"{m_v.max().item():.3e}  min psnr {q_v.min().item():.1f} dB")
-    check(d1 <= 1e-4 and m_v.max().item() == 0.0, "K2 identical-image case")
-
-    k_ms = cuda_ms(lambda: ssim_cuda.launch_images(gt, pred), 20)
-    w_ms = cuda_ms(lambda: ssim_cuda.ssim_psnr_batch_images(gt, pred), 20)
-    p_ms = cuda_ms(lambda: plain.ssim_psnr_images_plain(gt, pred), 5)
-    nbytes, flops = k2_cost(n, hw, hw, c, pred.element_size())
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"[k2] kernel {k_ms * 1e3:.1f} us/launch  wrapper (with channel "
-          f"mean) {w_ms * 1e3:.1f} us  plain {p_ms * 1e3:.1f} us  bound "
-          f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)  = {b_ms / k_ms:.1%} of bound")
-    for entry in ("K2 bf16", "K2 f32"):
+        k_ms = cuda_ms(lambda: ssim_cuda.launch_images(gt, pred), 20)
+        w_ms = cuda_ms(lambda: ssim_cuda.ssim_psnr_batch_images(gt, pred), 20)
+        p_ms = cuda_ms(lambda: plain.ssim_psnr_images_plain(gt, pred), 5)
+        nbytes, flops = k1_cost(1, n, side, side, c, pred.element_size())
+        b_ms, b_by = bound(nbytes, flops)
+        blocks, threads = ssim_cuda.occupancy(pred.dtype, c, side, side,
+                                              images=True)
+        print(f"{tag} kernel {k_ms * 1e3:.1f} us/launch (G 1, one-to-one; "
+              f"{blocks} resident blocks/SM x {threads} threads)  wrapper "
+              f"{w_ms * 1e3:.1f} us  plain {p_ms * 1e3:.1f} us  bound "
+              f"{b_ms * 1e3:.1f} us by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)  = {b_ms / k_ms:.1%} of bound")
+        if result is None:
+            result = dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        del gt, pred
+        torch.cuda.empty_cache()
+    for entry in ("ssim_kernel bf16 C3 G1", "ssim_kernel f32 C3 G1"):
         print(f"[k2] ptxas {entry}: {'; '.join(resources.get(entry, ['?']))}")
-    return dict(max_abs_err=worst, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    return result
 
 
 def phase_checkpoint(directory: str) -> str:
@@ -583,8 +603,8 @@ def phase_main(ckpt: str):
     frames = s_n * n_free * b
     finite = all(torch.isfinite(v).all().item() for v in out.values())
     print(f"[main] DCGAN-64 bf16 S {s_n} B {b} n_free {n_free}: "
-          f"{ms:.1f} ms/protocol (events; {MAIN_MS_BEFORE} ms before the "
-          f"seeded noise, PERF.md §5), {host_s * 1e3:.1f} ms host, "
+          f"{ms:.1f} ms/protocol (events; {MAIN_MS_BEFORE} ms with the "
+          f"per-plane kernels, PERF.md §5), {host_s * 1e3:.1f} ms host, "
           f"{frames / (ms / 1e3):,.0f} frames/s; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"K1 launches {launches}; finite {finite}")
@@ -733,6 +753,10 @@ def main() -> int:
             cfg, fns, x, out, k1["launches"] = phase_main(ckpt)
             k2["launches"] = phase_gen_full(cfg, fns, x, out)
             phase_profile(fns, x)
+        spilled = spills(resources)
+        print(f"[build] {len(resources)} kernel instances, spills: "
+              f"{spilled or 'none'}")
+        check(not spilled, f"ptxas reports spills: {spilled}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -324,8 +324,8 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                           device=x.device)
         for t, x_out in enumerate(rollout(m, cache, cache32, x, s_n, fork_15,
                                           eps_at)):
-            s_v, q_v, m_v = ssim_psnr_batch_cyclic(gt[t], x_out.contiguous())
-            out[:, :, t] = torch.stack([s_v, q_v, m_v]).reshape(3, s_n, b)
+            out[:, :, t] = ssim_psnr_batch_cyclic(
+                gt[t], x_out.contiguous()).view(3, s_n, b)
         return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
 
     @torch.inference_mode()

@@ -1,45 +1,69 @@
 """Wrappers of K1 and K2, the hand-written SSIM/PSNR/MSE kernels
-(`csrc/ssim_cyclic.cu`, two modes of one kernel template).
+(`csrc/ssim_cyclic.cu`, one kernel template).
 
 `ssim_psnr_batch_cyclic(gt, pred)` — K1, replacing
-`dvg_tpu/ops/pallas_ssim.py::_kernel_pre` — takes gt (B, H, W, C) f32 and
-pred (S·B, H, W, C) f32 or bf16, sample-major, and returns (ssim, psnr,
-mse), each (S·B,) f32 averaged over channels.
+`dvg_tpu/ops/pallas_ssim.py::_kernel_pre` and its gt precompute — takes gt
+(B, H, W, C) f32 and pred (S·B, H, W, C) f32 or bf16, sample-major, and
+returns the channel-averaged (ssim, psnr, mse) of each pred image as one
+(3, S·B) f32 tensor, which unpacks as `s, q, m = ...`. (The JAX wrappers
+return a tuple; the kernel writes the three rows into one tensor, so the
+card path needs no torch op besides its output and the rollout stores a
+step's rows with one copy.)
 
 `ssim_psnr_batch_images(gt, pred)` — K2, replacing `pallas_ssim.py::_kernel`
 (the counterpart of `ssim_psnr_batch_pallas`) — takes gt (N, H, W, C) f32
-and pred (N, H, W, C) f32 or bf16 and scores them pair by pair → (ssim,
-psnr, mse), each (N,).
+and pred (N, H, W, C) f32 or bf16 and scores them pair by pair → (3, N).
 
 For CPU tensors each runs its plain version (`ops.ssim`); for CUDA tensors
 it launches its kernel or raises — a failed build or launch is an error,
-never a fallback. Each wrapper's `.launches` counts its kernel's launches.
+never a fallback. The kernel takes C in `CHANNELS` and widths up to
+`MAX_WIDTH`; `_check` refuses other CUDA inputs before any launch. Each
+wrapper's `.launches` counts its kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from dvg_tpu_torch.ops import _build
-from dvg_tpu_torch.ops.ssim import WIN, Triple, gt_box_moments, \
-    ssim_psnr_cyclic_plain, ssim_psnr_images_plain
+from dvg_tpu_torch.ops.ssim import WIN, ssim_psnr_cyclic_plain, \
+    ssim_psnr_images_plain
 
 KERNEL = "ssim_cyclic"
+CHANNELS = (1, 3)      # the channel counts the template is compiled for
+GROUP = 2              # samples a K1 block scores (kK1Group in the source)
+MAX_WIDTH = 128        # the widest image every instance takes
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # gt, pred, pred_is_bf16, out, s, b, h, w, c, stream
+    "dvg_ssim_cyclic": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # gt, pred, pred_is_bf16, out, n, h, w, c, stream
+    "dvg_ssim_images": [_P, _P, _I, _P, _I, _I, _I, _I, _P],
+    # pred_is_bf16, c, images, h, w, &blocks_per_sm, &threads
+    "dvg_ssim_occupancy": [_I, _I, _I, _I, _I, _P, _P],
+}
 
 
-def _entry(name: str, n_ints: int, n_ptrs: int):
-    """The C entry `name` of the kernel library: (gt, pred, pred_is_bf16,
-    n_ptrs more pointers, n_ints ints, stream) → cudaError_t."""
-    fn = getattr(_build.load(KERNEL), name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i] + [p] * n_ptrs + [i] * n_ints + [p]
-    fn.restype = ctypes.c_int
-    return fn
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built if needed, with each C entry's argument
+    types bound once."""
+    lib = _build.load(KERNEL)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
-def _check(gt: torch.Tensor, pred: torch.Tensor) -> None:
+def _check(gt: torch.Tensor, pred: torch.Tensor) -> bool:
+    """Checks the shapes; True for CPU tensors (the plain path). For CUDA
+    tensors also checks what the kernel takes, and raises on the rest."""
     if gt.dim() != 4 or pred.dim() != 4:
         raise ValueError(f"expected NHWC gt and pred, got {tuple(gt.shape)} "
                          f"and {tuple(pred.shape)}")
@@ -52,11 +76,6 @@ def _check(gt: torch.Tensor, pred: torch.Tensor) -> None:
     if min(gt.shape[1], gt.shape[2]) < WIN:
         raise ValueError(f"images {tuple(gt.shape[1:3])} are smaller than "
                          f"the {WIN}×{WIN} window")
-
-
-def _on_cpu(gt: torch.Tensor, pred: torch.Tensor) -> bool:
-    """True for CPU tensors (the plain path); checks what the kernels take
-    for CUDA tensors and raises on anything else."""
     if gt.device.type == "cpu" and pred.device.type == "cpu":
         return True
     if gt.device.type != "cuda" or gt.device != pred.device:
@@ -68,37 +87,34 @@ def _on_cpu(gt: torch.Tensor, pred: torch.Tensor) -> bool:
         raise TypeError(f"pred must be float32 or bfloat16, got {pred.dtype}")
     if not (gt.is_contiguous() and pred.is_contiguous()):
         raise ValueError("gt and pred must be contiguous NHWC")
+    if gt.shape[3] not in CHANNELS:
+        raise ValueError(f"the kernel takes C in {CHANNELS}, got C = "
+                         f"{gt.shape[3]}")
+    if gt.shape[2] > MAX_WIDTH:
+        raise ValueError(f"images {gt.shape[2]} px wide are wider than the "
+                         f"kernel's {MAX_WIDTH}")
     return False
 
 
-def _channel_mean(out: torch.Tensor, n: int, c: int) -> Triple:
-    s, q, m = out.view(3, n, c).mean(dim=-1)
-    return s, q, m
-
-
-def ssim_psnr_batch_cyclic(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
-    _check(gt, pred)
-    if _on_cpu(gt, pred):
-        return ssim_psnr_cyclic_plain(gt, pred)
-    out = launch(gt, pred, *gt_box_moments(gt))
+def ssim_psnr_batch_cyclic(gt: torch.Tensor, pred: torch.Tensor
+                           ) -> torch.Tensor:
+    if _check(gt, pred):
+        return torch.stack(ssim_psnr_cyclic_plain(gt, pred))
+    out = launch(gt, pred)
     ssim_psnr_batch_cyclic.launches += 1
-    return _channel_mean(out, pred.shape[0], gt.shape[3])
+    return out
 
 
-def ssim_psnr_batch_images(gt: torch.Tensor, pred: torch.Tensor) -> Triple:
-    _check(gt, pred)
+def ssim_psnr_batch_images(gt: torch.Tensor, pred: torch.Tensor
+                           ) -> torch.Tensor:
     if gt.shape[0] != pred.shape[0]:
         raise ValueError(f"gt {tuple(gt.shape)} and pred {tuple(pred.shape)} "
                          "differ in N: K2 scores them pair by pair")
-    if _on_cpu(gt, pred):
-        return ssim_psnr_images_plain(gt, pred)
+    if _check(gt, pred):
+        return torch.stack(ssim_psnr_images_plain(gt, pred))
     out = launch_images(gt, pred)
     ssim_psnr_batch_images.launches += 1
-    return _channel_mean(out, pred.shape[0], gt.shape[3])
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return out
 
 
 def _raise_on(err: int) -> None:
@@ -106,33 +122,46 @@ def _raise_on(err: int) -> None:
         raise RuntimeError(f"{KERNEL} kernel launch failed: cudaError {err}")
 
 
-def launch(gt: torch.Tensor, pred: torch.Tensor, mg: torch.Tensor,
-           gux: torch.Tensor, gxx: torch.Tensor) -> torch.Tensor:
-    """One launch of K1 on checked CUDA inputs and the gt precompute of
-    `gt_box_moments` → per-plane (ssim, psnr, mse) rows, (3, N·C) f32.
+def launch(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """One launch of K1 on checked CUDA inputs → (3, S·B) f32 rows (ssim,
+    psnr, mse), each block scoring GROUP samples of one gt image.
     Counts nothing: `ssim_psnr_batch_cyclic` is the entry point; this is
     its launch, exposed for timing the kernel alone."""
     b, h, w, c = gt.shape
     n = pred.shape[0]
-    out = torch.empty((3, n * c), dtype=torch.float32, device=gt.device)
+    out = torch.empty((3, n), dtype=torch.float32, device=gt.device)
     with torch.cuda.device(gt.device):
-        _raise_on(_entry("dvg_ssim_cyclic", 5, 4)(
+        _raise_on(_lib().dvg_ssim_cyclic(
             gt.data_ptr(), pred.data_ptr(), int(pred.dtype == torch.bfloat16),
-            mg.data_ptr(), gux.data_ptr(), gxx.data_ptr(), out.data_ptr(),
-            n, b, h, w, c, _stream(gt)))
+            out.data_ptr(), n // b, b, h, w, c,
+            torch.cuda.current_stream().cuda_stream))
     return out
 
 
 def launch_images(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
-    """One launch of K2 on checked CUDA inputs → per-plane (ssim, psnr,
-    mse) rows, (3, N·C) f32. Counts nothing, like `launch`."""
+    """One launch of K2 on checked CUDA inputs → (3, N) f32 rows. Counts
+    nothing, like `launch`."""
     n, h, w, c = gt.shape
-    out = torch.empty((3, n * c), dtype=torch.float32, device=gt.device)
+    out = torch.empty((3, n), dtype=torch.float32, device=gt.device)
     with torch.cuda.device(gt.device):
-        _raise_on(_entry("dvg_ssim_images", 4, 1)(
+        _raise_on(_lib().dvg_ssim_images(
             gt.data_ptr(), pred.data_ptr(), int(pred.dtype == torch.bfloat16),
-            out.data_ptr(), n, h, w, c, _stream(gt)))
+            out.data_ptr(), n, h, w, c,
+            torch.cuda.current_stream().cuda_stream))
     return out
+
+
+def occupancy(pred_dtype: torch.dtype, c: int, h: int, w: int,
+              images: bool = False) -> Tuple[int, int]:
+    """(resident blocks per SM, threads per block) of K1's instance (K2's
+    where `images`) for pred_dtype, C = c and h × w images, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them on the
+    current card."""
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    _raise_on(_lib().dvg_ssim_occupancy(
+        int(pred_dtype == torch.bfloat16), c, int(images), h, w,
+        ctypes.byref(blocks), ctypes.byref(threads)))
+    return blocks.value, threads.value
 
 
 ssim_psnr_batch_cyclic.launches = 0

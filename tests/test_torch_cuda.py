@@ -21,6 +21,7 @@ from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.generate.rollout import make_rollout_fns
 from dvg_tpu_torch.models.dvg import DVGModel
 from dvg_tpu_torch.ops import ssim as plain
+from dvg_tpu_torch.ops import ssim_cuda
 from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                          ssim_psnr_batch_images)
 
@@ -39,11 +40,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _pair(dev, b, s, c, dtype):
+def _pair(dev, b, s, c, dtype, h=64, w=64):
     g = torch.Generator(device=dev).manual_seed(b * 100 + s * 10 + c)
-    gt = torch.rand((b, 64, 64, c), generator=g, device=dev)
+    gt = torch.rand((b, h, w, c), generator=g, device=dev)
     pred = 0.6 * gt.repeat(s, 1, 1, 1) + 0.4 * torch.rand(
-        (s * b, 64, 64, c), generator=g, device=dev)
+        (s * b, h, w, c), generator=g, device=dev)
     return gt, pred.to(dtype)
 
 
@@ -55,19 +56,49 @@ def _close(got, ref, mse_rtol):
     assert ((m - rm).abs() / rm.abs()).max() <= mse_rtol
 
 
+# (B, S, H, W, C): the headline step, a short one, C = 1, DCGAN-128, a
+# non-square image, the 7×7 minimum (scalar loads in both passes), B = 1,
+# S not a multiple of the sample group, and 60×60 (vector loads in pass 1,
+# H·W % 8 == 0; scalar rows in pass 2, W % 8 ≠ 0)
+K1_CASES = [(50, 100, 64, 64, 3), (50, 4, 64, 64, 3), (5, 3, 64, 64, 1),
+            (4, 2, 128, 128, 3), (3, 2, 48, 80, 1), (2, 3, 7, 7, 3),
+            (1, 3, 64, 64, 3), (3, 5, 64, 64, 3), (2, 3, 60, 60, 3)]
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose storage starts one element past a
+    16-byte boundary, so the kernel takes its scalar loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,c", [(50, 4, 3), (5, 3, 1)])
-def test_kernel_matches_plain(cuda, dtype, b, s, c):
-    gt, pred = _pair(cuda, b, s, c, dtype)
+@pytest.mark.parametrize("b,s,h,w,c", K1_CASES)
+def test_kernel_matches_plain(cuda, dtype, b, s, h, w, c):
+    gt, pred = _pair(cuda, b, s, c, dtype, h, w)
     before = ssim_psnr_batch_cyclic.launches
     got = ssim_psnr_batch_cyclic(gt, pred)
     torch.cuda.synchronize()
     assert ssim_psnr_batch_cyclic.launches == before + 1
+    assert got.shape == (3, s * b)
     _close(got, plain.ssim_psnr_cyclic_plain(gt, pred), 1e-5)
 
 
-def test_kernel_identical_images(cuda):
-    gt, _ = _pair(cuda, 8, 1, 3, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_misaligned_storage_matches_plain(cuda, dtype):
+    gt, pred = _pair(cuda, 3, 3, 3, dtype)
+    gt, pred = _misaligned(gt), _misaligned(pred)
+    assert gt.data_ptr() % 16 and pred.data_ptr() % 16
+    got = ssim_psnr_batch_cyclic(gt, pred)
+    torch.cuda.synchronize()
+    _close(got, plain.ssim_psnr_cyclic_plain(gt, pred), 1e-5)
+
+
+@pytest.mark.parametrize("side", [64, 128])
+def test_kernel_identical_images(cuda, side):
+    gt, _ = _pair(cuda, 8, 1, 3, torch.float32, side, side)
     s, q, m = ssim_psnr_batch_cyclic(gt, gt.repeat(2, 1, 1, 1))
     assert (s - 1).abs().max() <= 1e-4
     assert m.max().item() == 0.0 and q.min().item() > 100.0
@@ -81,6 +112,24 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ssim_psnr_batch_cyclic(gt.half(), pred)
     with pytest.raises(ValueError, match="same CUDA device"):
         ssim_psnr_batch_cyclic(gt, pred.cpu())
+    gt2, pred2 = _pair(cuda, 2, 2, 2, torch.float32)
+    with pytest.raises(ValueError, match="takes C in"):
+        ssim_psnr_batch_cyclic(gt2, pred2)
+    wide = ssim_cuda.MAX_WIDTH + 1
+    gt3, pred3 = _pair(cuda, 1, 1, 1, torch.float32, 8, wide)
+    with pytest.raises(ValueError, match="wider"):
+        ssim_psnr_batch_cyclic(gt3, pred3)
+
+
+def test_kernel_occupancy(cuda):
+    """K1's headline instance (bf16, C 3, 64 px) keeps more than 16 warps
+    per SM resident, and every instance of K1 and K2 runs at 128 px."""
+    blocks, threads = ssim_cuda.occupancy(torch.bfloat16, 3, 64, 64)
+    assert blocks * threads // 32 > 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in ssim_cuda.CHANNELS:
+            for images in (False, True):
+                assert ssim_cuda.occupancy(dtype, c, 128, 128, images)[0] >= 1
 
 
 def test_tiny_slice_card_matches_cpu(cuda):
@@ -101,10 +150,15 @@ def test_tiny_slice_card_matches_cpu(cuda):
 # K2: one-to-one pairs
 # ---------------------------------------------------------------------------
 
+# (N, H, W, C): as K1_CASES, one-to-one
+K2_CASES = [(64, 64, 64, 3), (7, 64, 64, 1), (8, 128, 128, 3),
+            (6, 48, 80, 1), (5, 7, 7, 3), (1, 64, 64, 3), (4, 60, 60, 3)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,c", [(64, 3), (7, 1)])
-def test_images_kernel_matches_plain(cuda, dtype, n, c):
-    gt, pred = _pair(cuda, n, 1, c, dtype)
+@pytest.mark.parametrize("n,h,w,c", K2_CASES)
+def test_images_kernel_matches_plain(cuda, dtype, n, h, w, c):
+    gt, pred = _pair(cuda, n, 1, c, dtype, h, w)
     before = ssim_psnr_batch_images.launches
     got = ssim_psnr_batch_images(gt, pred)
     torch.cuda.synchronize()
@@ -113,8 +167,18 @@ def test_images_kernel_matches_plain(cuda, dtype, n, c):
     _close(got, plain.ssim_psnr_images_plain(gt, pred), 1e-5)
 
 
-def test_images_kernel_identical_images(cuda):
-    gt, _ = _pair(cuda, 8, 1, 3, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_images_kernel_misaligned_storage_matches_plain(cuda, dtype):
+    gt, pred = _pair(cuda, 5, 1, 3, dtype)
+    gt, pred = _misaligned(gt), _misaligned(pred)
+    got = ssim_psnr_batch_images(gt, pred)
+    torch.cuda.synchronize()
+    _close(got, plain.ssim_psnr_images_plain(gt, pred), 1e-5)
+
+
+@pytest.mark.parametrize("side", [64, 128])
+def test_images_kernel_identical_images(cuda, side):
+    gt, _ = _pair(cuda, 8, 1, 3, torch.float32, side, side)
     same = gt.to(torch.bfloat16)
     s, q, m = ssim_psnr_batch_images(same.float(), same)
     assert (s - 1).abs().max() <= 1e-4

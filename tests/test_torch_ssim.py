@@ -28,12 +28,12 @@ from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
 SSIM_ATOL, PSNR_ATOL, MSE_RTOL = 1e-5, 1e-3, 1e-5
 
 
-def _pair(seed, b, s, c, dtype=np.float32):
-    """gt (B, 64, 64, C) and a correlated pred (S·B, 64, 64, C)."""
+def _pair(seed, b, s, c, dtype=np.float32, h=64, w=64):
+    """gt (B, H, W, C) and a correlated pred (S·B, H, W, C)."""
     rng = np.random.RandomState(seed)
-    gt = rng.rand(b, 64, 64, c).astype(np.float32)
+    gt = rng.rand(b, h, w, c).astype(np.float32)
     pred = (0.6 * np.tile(gt, (s, 1, 1, 1))
-            + 0.4 * rng.rand(s * b, 64, 64, c)).astype(dtype)
+            + 0.4 * rng.rand(s * b, h, w, c)).astype(dtype)
     return gt, pred
 
 
@@ -44,9 +44,13 @@ def _check(got, ref_s, ref_q, ref_m):
     np.testing.assert_allclose(m, np.asarray(ref_m), rtol=MSE_RTOL)
 
 
-@pytest.mark.parametrize("b,s,c", [(5, 3, 3), (4, 2, 1)])
-def test_cyclic_plain_matches_pallas_interpret(b, s, c):
-    gt, pred = _pair(0, b, s, c)
+# (B, S, C, H, W): 64 px, then the kernel's other sizes at tiny batches —
+# DCGAN-128 and a non-square one-channel image
+@pytest.mark.parametrize("b,s,c,h,w", [(5, 3, 3, 64, 64), (4, 2, 1, 64, 64),
+                                       (2, 2, 3, 128, 128),
+                                       (2, 2, 1, 48, 80)])
+def test_cyclic_plain_matches_pallas_interpret(b, s, c, h, w):
+    gt, pred = _pair(0, b, s, c, h=h, w=w)
     ref = ssim_psnr_batch_pallas_cyclic(jnp.asarray(gt), jnp.asarray(pred),
                                         interpret=True)
     _check(tssim.ssim_psnr_cyclic_plain(torch.from_numpy(gt),
@@ -134,11 +138,12 @@ def test_wrapper_rejects_bad_shapes():
 # K2: one-to-one pairs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,c", [(5, 3), (9, 1)])
-def test_images_plain_matches_pallas_interpret(n, c):
+@pytest.mark.parametrize("n,c,h,w", [(5, 3, 64, 64), (9, 1, 64, 64),
+                                     (2, 3, 128, 128), (2, 1, 48, 80)])
+def test_images_plain_matches_pallas_interpret(n, c, h, w):
     """N not a multiple of the Pallas block of 8: its wrapper pads with
     all-ones images, the port has no padding."""
-    gt, pred = _pair(8, n, 1, c)
+    gt, pred = _pair(8, n, 1, c, h=h, w=w)
     ref = ssim_psnr_batch_pallas(jnp.asarray(gt), jnp.asarray(pred),
                                  interpret=True)
     _check(tssim.ssim_psnr_images_plain(torch.from_numpy(gt),
