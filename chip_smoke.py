@@ -37,7 +37,19 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      random]) scored by K2 — the K2 path, its counts set to 0 just before
      and read just after;
   9. a torch.profiler pass over one more protocol run: device time by
-     kernel group and the card's busy share.
+     kernel group and the card's busy share;
+ 10. [cli] the eval CLI (`dvg_tpu_torch.cli.generate.main`) in-process at
+     full width from a DCGAN-64 smmnist checkpoint (channels 1, unit gain)
+     on procedural digits, two batches, in f32 and in bf16: wall seconds
+     of each stage, K1 launches per batch (100) with every count set to 0
+     just before each run and read just after, peak memory, the npz
+     shapes, 10 GIFs and an eval record per batch, and the best-SSIM
+     column's frames (held before GIF encoding) re-scored by K2 against
+     the batch's ground truth equal to the npz scores; K1 alone at C 1;
+     the GP-trigger run (50 strips, every decision firing at a positive
+     margin on the seeded GP's constant variance); the Finn and
+     kernel-free metric routes card against CPU on the tiny config, and
+     timed at full width beside K1's; and no PIL or imageio imported.
 Then one JSON line describing every kernel of the port, and last the
 device line.
 
@@ -76,6 +88,25 @@ SIDES = (64, 128)         # image sides of the kernel phases: DCGAN-64, -128
 GIF_ROWS = 10             # the eval CLI's re-roll: rows × [best + 3 random]
 MAIN_MS_BEFORE = 1490.3   # PERF.md §5: the protocol with per-plane kernels
 MAIN_SEED = 3             # the main run's seed, which the re-roll replays
+
+# the eval CLI's checkpoint: DCGAN-64 on smmnist (channels 1), saved
+# geometry; the CLI applies the protocol override (n_eval 105, B 50)
+CLI_MODEL = dict(dataset="smmnist", channels=1, image_width=64, g_dim=90,
+                 rnn_size=256, predictor_rnn_layers=2,
+                 num_inducing_points=40, n_past=5, n_future=10, n_eval=15)
+CLI_BATCHES = 2           # batch 1 is warm
+# the best column re-scored by K2 against the npz scores. In bf16 the
+# 40-pair re-roll and the scored batch of 5,000 can take different cuDNN
+# kernels (the encoder's skips differ by a bf16 ulp between the two batch
+# sizes, with cudnn.benchmark and cudnn.deterministic on or off), so the
+# re-rolled future is the scored one to bf16 rounding: the first [cli] run
+# measured 3.6e-4 SSIM and 6.6e-4 dB there. f32 holds 1e-5 and 1e-3 dB.
+CLI_TOL = {"float32": dict(ssim_atol=1e-5, psnr_atol=1e-3),
+           "bfloat16": dict(ssim_atol=1e-3, psnr_atol=5e-3)}
+# the Finn and kernel-free routes card against CPU (tests/test_torch_rollout)
+ROUTE_TOL = dict(ssim_atol=5e-4, psnr_atol=1e-2, mse_rtol=1e-3)
+ROUTES = (("K1", {}), ("finn", dict(eval_metric="finn")),
+          ("no_kernel", dict(use_pallas=False)))
 
 K1_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
 PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
@@ -729,6 +760,233 @@ def phase_profile(fns, x):
         print(f"[profile] top {ms:9.2f} ms {n:5d}x  {name[:100]}")
 
 
+def cli_run(ckpt_dir: str, data_root: str, logs, *flags):
+    """One in-process run of the eval CLI on the card; every kernel's count
+    set to 0 just before and read just after. → (wall s, K1 launches of
+    each diverse_metrics call, the clips it scored, the best-column frames
+    held before GIF encoding by file name, K2 launches, peak GiB)."""
+    import torch
+    from dvg_tpu_torch.cli import generate as gen_cli
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    per_call, clips, best = [], [], {}
+    real_fns, real_gif = gen_cli.make_rollout_fns, gen_cli.save_gif_with_text
+
+    def fns_counting(model, cfg):
+        fns = real_fns(model, cfg)
+
+        def diverse_metrics(x, **kw):
+            before = ssim_psnr_batch_cyclic.launches
+            out = fns.diverse_metrics(x, **kw)
+            torch.cuda.synchronize()
+            per_call.append(ssim_psnr_batch_cyclic.launches - before)
+            clips.append(x)
+            return out
+        return fns._replace(diverse_metrics=diverse_metrics)
+
+    def hold_best(path, gifs, texts, **kw):
+        best[Path(path).name] = [row[2] for row in gifs]
+        real_gif(path, gifs, texts, **kw)
+
+    gen_cli.make_rollout_fns, gen_cli.save_gif_with_text = (fns_counting,
+                                                            hold_best)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssim_psnr_batch_cyclic.launches = 0
+        ssim_psnr_batch_images.launches = 0
+        t0 = time.perf_counter()
+        rc = gen_cli.main(["--model_dir", ckpt_dir, "--log_dir", str(logs),
+                           "--dataset", "smmnist", "--data_root", data_root,
+                           "--num_batches", str(CLI_BATCHES), *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k2 = ssim_psnr_batch_images.launches
+    finally:
+        gen_cli.make_rollout_fns = real_fns
+        gen_cli.save_gif_with_text = real_gif
+    check(rc == 0, f"the CLI returned {rc}")
+    return (wall, per_call, clips, best, k2,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def read_records(logs) -> list:
+    with open(Path(logs) / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_cli(tmp: str):
+    """The eval CLI at full width (module docstring, phase 10)."""
+    import os
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
+    from dvg_tpu_torch.ops import ssim as plain
+    from dvg_tpu_torch.ops import ssim_cuda
+    tmp = Path(tmp)
+    # the CLI runs under PyTorch's defaults, as a user's process has them
+    # (phase 7 turned cudnn.benchmark on, phases 5-6 TF32 off); the CLI
+    # turns TF32 off itself for an f32 run
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = DVGConfig(**CLI_MODEL)
+    ckpt = str(tmp / "cli_ckpt")
+    save_checkpoint(ckpt, cfg, unit_gain_model(cfg, "cpu"))
+    no_mnist = tmp / "no_mnist"
+    no_mnist.mkdir()
+    gen = cfg.generation_override()
+    b, n_past, n_eval = gen.batch_size, gen.n_past, gen.n_eval
+    n_free, s_n = n_eval - n_past, 100
+    print(f"[cli] checkpoint: DCGAN-64 smmnist C 1 unit gain; protocol S "
+          f"{s_n} B {b} n_eval {n_eval}, {CLI_BATCHES} batches of "
+          "procedural digits (data_root holds no MNIST file)")
+    for dtype in ("float32", "bfloat16"):
+        logs = tmp / f"cli_{dtype}"
+        wall, per_call, clips, best, k2, peak = cli_run(
+            ckpt, str(no_mnist), logs, "--dtype", dtype)
+        recs = read_records(logs)
+        load_s = [r["ckpt_load_s"] for r in recs if r["kind"] == "setup"]
+        times = [r for r in recs if r["kind"] == "time"]
+        evals = [r for r in recs if r["kind"] == "eval"]
+        gifs = sorted(p.name for p in logs.glob("sample_lstm_*.gif"))
+        print(f"[cli] {dtype}: {wall:.2f} s wall for {CLI_BATCHES} batches; "
+              f"checkpoint load {load_s[0]:.3f} s; K1 launches per batch "
+              f"{per_call}; K2 launches {k2}; peak mem {peak:.2f} GiB; "
+              f"{len(gifs)} GIFs, "
+              f"{sum(p.stat().st_size for p in logs.glob('*.gif')) / 1e6:.1f}"
+              " MB")
+        for r in times:
+            print(f"[cli] {dtype} batch {r['step']} s: assembly "
+                  f"{r['batch_s']:.4f}  posterior {r['posterior_s']:.3f}  "
+                  f"diverse_metrics {r['metrics_s']:.3f}  40-pair re-roll "
+                  f"{r['reroll_s']:.3f}  10 GIFs {r['gifs_s']:.3f}")
+        check(per_call == [n_free] * CLI_BATCHES,
+              f"K1 launches per batch {per_call}, want {n_free}")
+        check(len(evals) == CLI_BATCHES and len(times) == CLI_BATCHES,
+              f"{len(evals)} eval and {len(times)} time records")
+        check(len(gifs) == 10 * CLI_BATCHES, f"{len(gifs)} GIFs")
+        worst = [0.0, 0.0]
+        for bi in range(CLI_BATCHES):
+            arrs = np.load(logs / f"eval_batch{bi}.npz")
+            for k in ("ssim", "psnr"):
+                check(arrs[k].shape == (b, s_n, n_free),
+                      f"{k} shape {arrs[k].shape}")
+                check(bool(np.isfinite(arrs[k]).all()), f"{k} not finite")
+            check(all(np.isfinite(v) for v in (evals[bi]["ssim_best_mean"],
+                                               evals[bi]["psnr_mean"])),
+                  "eval record not finite")
+            idx, _ = best_of_n(torch.from_numpy(arrs["ssim"]))
+            x = clips[bi]
+            for i in range(10):
+                tiles = best[f"sample_lstm_{bi * b + i}.gif"]
+                pred = torch.as_tensor(np.stack(
+                    [t[1:65, 1:65, :1] for t in tiles[n_past:]]), device=CARD)
+                gt = x[n_past:, i].contiguous()
+                s_v, q_v, _ = ssim_cuda.ssim_psnr_batch_images(gt, pred)
+                want_s = arrs["ssim"][i, int(idx[i])]
+                want_q = arrs["psnr"][i, int(idx[i])]
+                worst[0] = max(worst[0], float(np.abs(
+                    s_v.cpu().numpy() - want_s).max()))
+                worst[1] = max(worst[1], float(np.abs(
+                    q_v.cpu().numpy() - want_q).max()))
+        tol = CLI_TOL[dtype]
+        print(f"[cli] {dtype}: best-SSIM column of every GIF re-scored by K2 "
+              f"vs the npz scores: max|dssim| {worst[0]:.3e}  max|dpsnr| "
+              f"{worst[1]:.3e} dB  (tol {tol})")
+        check(worst[0] <= tol["ssim_atol"] and worst[1] <= tol["psnr_atol"],
+              f"{dtype}: the GIF's best column is not the scored future: "
+              f"{worst}")
+        del clips, best
+        torch.cuda.empty_cache()
+
+    # K1 alone at C 1, the CLI's step shape
+    for dt in (torch.float32, torch.bfloat16):
+        gt, pred = kernel_inputs(torch.device(CARD), s_n, b, 64, 1, seed=9)
+        pred = pred.to(dt)
+        errs = max_errs(ssim_cuda.ssim_psnr_batch_cyclic(gt, pred),
+                        plain.ssim_psnr_cyclic_plain(gt, pred))
+        check(within(errs, K1_TOL), f"K1 C 1 disagrees: {errs}")
+        k_ms = cuda_ms(lambda: ssim_cuda.launch(gt, pred), 20)
+        nbytes, flops = k1_cost(s_n, b, 64, 64, 1, pred.element_size())
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"[cli] K1 C 1 {tuple(pred.shape)} {str(dt)[6:]} pred: kernel "
+              f"{k_ms * 1e3:.1f} us/launch, bound {b_ms * 1e3:.1f} us by "
+              f"{b_by} = {b_ms / k_ms:.1%}; vs plain max|dssim| "
+              f"{errs[0]:.3e}")
+
+    # the GP-trigger path: at the seeded GP's constant variance the window's
+    # std is 0, so a positive margin fires every decision
+    cwd = os.getcwd()
+    trig_dir = tmp / "trigger_cwd"
+    trig_dir.mkdir()
+    os.chdir(trig_dir)
+    try:
+        t0 = time.perf_counter()
+        from dvg_tpu_torch.cli import generate as gen_cli
+        rc = gen_cli.main(["--model_dir", ckpt, "--log_dir",
+                           str(tmp / "cli_trigger"), "--dataset", "smmnist",
+                           "--data_root", str(no_mnist), "--num_batches", "1",
+                           "--gp_trigger_flag", "--trigger_margin", "1e-3"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    check(rc == 0, f"the trigger run returned {rc}")
+    strips = list(trig_dir.glob("recursive_generation/*/*.png"))
+    recs = read_records(tmp / "cli_trigger")
+    trig = [r for r in recs if r["kind"] == "trigger"]
+    t_rec = [r for r in recs if r["kind"] == "time"][0]
+    want = b * (n_eval - 12)
+    print(f"[cli] gp-trigger B {b} n_eval {n_eval}: {len(strips)} strips, "
+          f"{trig[0]['triggers']:.0f} of {want} decisions fired (margin "
+          f"1e-3); rollout {t_rec['trigger_s']:.3f} s, strips "
+          f"{t_rec['strips_s']:.3f} s, {wall:.2f} s wall")
+    check(len(strips) == b, f"{len(strips)} strips, want {b}")
+    check(len(trig) == 1 and trig[0]["triggers"] == want,
+          f"trigger records {trig}, want {want} decisions")
+
+    # the Finn and kernel-free routes: card against CPU on the tiny config
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = DVGConfig(**TINY)
+    rng = np.random.RandomState(4)
+    x = (rng.rand(tiny.n_eval, tiny.batch_size, 64, 64, 3) * 2 - 1
+         ).astype(np.float32)
+    noise = rng.randn(tiny.n_eval - tiny.n_past, tiny.nsample,
+                      tiny.batch_size, tiny.g_dim).astype(np.float32)
+    for name, kw in ROUTES[1:]:
+        outs = {}
+        for dev in ("cpu", CARD):
+            ssim_cuda.ssim_psnr_batch_cyclic.launches = 0
+            out = make_rollout_fns(unit_gain_model(tiny, dev),
+                                   tiny.replace(**kw)).diverse_metrics(
+                x, noise=noise, device=dev)
+            outs[dev] = [out[k].cpu() for k in METRICS]
+            check(ssim_cuda.ssim_psnr_batch_cyclic.launches == 0,
+                  f"the {name} route launched K1")
+        errs = max_errs(outs[CARD], outs["cpu"])
+        print(f"[cli] tiny f32 {name} route card vs cpu: max|dssim| "
+              f"{errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  max rel dmse "
+              f"{errs[2]:.3e}  (tol {ROUTE_TOL})")
+        check(within(errs, ROUTE_TOL), f"{name} route card vs CPU: {errs}")
+
+    # each route timed at full width, bf16, on the CLI checkpoint
+    _, model = load_model(ckpt, device=CARD)
+    xg = torch.rand((n_eval, b, 64, 64, 1),
+                    generator=torch.Generator(device=CARD).manual_seed(3),
+                    device=CARD)
+    for name, kw in ROUTES:
+        fns = make_rollout_fns(model, gen.replace(
+            **{"dtype": "bfloat16", "nsample": s_n, "use_pallas": True, **kw}))
+        _, ms = events_ms(lambda: fns.diverse_metrics(xg, seed=1,
+                                                      device=CARD))
+        print(f"[cli] route {name}: diverse_metrics bf16 S {s_n} B {b} C 1 "
+              f"n_free {n_free}: {ms:.1f} ms (one call)")
+    loaded = [m for m in ("PIL", "imageio") if m in sys.modules]
+    print(f"[cli] PIL/imageio imported: {loaded or 'none'}")
+    check(not loaded, f"the CLI phase imported {loaded}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -753,6 +1011,9 @@ def main() -> int:
             cfg, fns, x, out, k1["launches"] = phase_main(ckpt)
             k2["launches"] = phase_gen_full(cfg, fns, x, out)
             phase_profile(fns, x)
+            del fns, x, out
+            torch.cuda.empty_cache()
+            phase_cli(tmp)
         spilled = spills(resources)
         print(f"[build] {len(resources)} kernel instances, spills: "
               f"{spilled or 'none'}")

@@ -11,8 +11,11 @@ JAX package's layouts: NHWC images, (T, B, H, W, C) clips and
 Ported so far: generation for DCGAN-64 (`generate.rollout.make_rollout_fns`:
 posterior, diverse, diverse_metrics, the exact re-rolls, plot_samples and
 gp_trigger) with both hand-written CUDA metric kernels (`ops/ssim_cuda.py`,
-`csrc/ssim_cyclic.cu`), and the `dvg_tpu` checkpoint format
-(`checkpoint.py`).
+`csrc/ssim_cyclic.cu`) and the Finn and kernel-free metric routes
+(`ops/ssim.py`), the `dvg_tpu` checkpoint format (`checkpoint.py`), the
+datasets and loader (`data/`), and the eval CLI
+(`python -m dvg_tpu_torch.cli.generate`) with its PNG/GIF writers, logging
+and profiling (`utils/`), none of which needs PIL or imageio.
 """
 
 __version__ = "0.1.0"

@@ -14,8 +14,9 @@ loop over a merged sample-major (K·B) batch (row k·B + b):
     the loop (`cfg.last_frame_skip`: the skips refresh from every step's
     encode and the decode is the fused one);
   * `diverse_metrics` scores every step's frames against the f32 ground
-    truth through K1 (ops/ssim_cuda.py) and returns {"ssim", "psnr",
-    "mse"}, each (S, n_free, B) f32; the other paths return frames.
+    truth and returns {"ssim", "psnr", "mse"}, each (S, n_free, B) f32, by
+    one of three metric routes (`make_rollout_fns`); the other paths
+    return frames.
 `posterior` decodes the GP posterior mean of the LSTM's prediction at
 every step. `gp_trigger` free-runs from x[0] without teacher forcing and
 forks a row whenever its GP variance norm leaves a rolling window's band.
@@ -43,6 +44,8 @@ from dvg_tpu_torch.config import DVGConfig, compute_dtype, resolve_device
 from dvg_tpu_torch.models import gp as gp_mod
 from dvg_tpu_torch.models.dvg import DVGModel
 from dvg_tpu_torch.models.rnn import Hidden
+from dvg_tpu_torch.ops.ssim import (finn_ssim_psnr_batch, ssim_gt_precompute,
+                                    ssim_psnr_batch_pre)
 from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
 
 FORK_EVERY = 15
@@ -61,7 +64,9 @@ class RolloutFns(NamedTuple):
     # (x, seed, noise, device) -> (S, n_eval, B, H, W, C) f32
     diverse: Callable
     # (x, seed, noise, device, row_offset) ->
-    #   {"ssim", "psnr", "mse": (S, n_free, B)}
+    #   {"ssim", "psnr", "mse": (S, n_free, B)}, scored in the loop by the
+    #   route cfg selects: K1 (use_pallas, the CLI's default), the skimage
+    #   metric in stock torch ops (--no_pallas) or Finn's (--finn)
     diverse_metrics: Callable
     # (x, sample_ids (K,), row_ids (B,), seed, noise, device) ->
     #   (K, n_eval, B, H, W, C); refuses cfg.full_cov_sampling
@@ -108,16 +113,26 @@ def _ids(ids) -> torch.Tensor:
 
 def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
     """cfg.dtype='bfloat16' runs the convs, the LSTM and the GP sample in
-    bf16; metrics and returned frames are f32."""
-    if cfg.eval_metric != "skimage":
-        raise NotImplementedError(
-            f"eval_metric={cfg.eval_metric!r} is not ported yet: ROADMAP "
-            "queue 1 item 6")
-    if not cfg.use_pallas:
-        raise NotImplementedError(
-            "the metric route without the hand-written kernel "
-            "(use_pallas=False, expanded-form MSE) is not ported: ROADMAP "
-            "queue 1 item 7; set use_pallas=True")
+    bf16; metrics and returned frames are f32.
+
+    `diverse_metrics` scores each step by one of three routes, as the JAX
+    package's does:
+      * K1, the hand-written kernel (`ops/ssim_cuda.py`; its plain version
+        on CPU tensors): eval_metric "skimage" with use_pallas. SSIM, PSNR
+        and the direct Σ(x − g)² MSE in one pass. The CLI's default.
+      * the skimage metric in stock torch ops: eval_metric "skimage"
+        without use_pallas (CLI --no_pallas). The gt side's box moments
+        are computed once per clip.
+      * Finn's metric: eval_metric "finn" (CLI --finn), whatever
+        use_pallas says. An 11×11 Gaussian window, L = 1.
+    The last two compute MSE in the expanded form Σx² − 2·x·g + Σg², the
+    cross term one batched f32 matmul, and broadcast the gt side over the
+    S samples as views."""
+    if cfg.eval_metric not in ("skimage", "finn"):
+        raise ValueError(f"eval_metric must be 'skimage' or 'finn', got "
+                         f"{cfg.eval_metric!r}")
+    finn = cfg.eval_metric == "finn"
+    use_kernel = bool(cfg.use_pallas) and not finn
     n_past, n_eval = cfg.n_past, cfg.n_eval
     n_free = n_eval - n_past
     s_n, d = cfg.nsample, cfg.g_dim
@@ -307,6 +322,35 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             m, cache, cache32, x_sel, 1, fork_15, eps_at)]
         return torch.cat([x_sel[:n_past].float(), torch.stack(frames)], dim=0)
 
+    def step_metrics(gt: torch.Tensor) -> Callable[[int, torch.Tensor],
+                                                   torch.Tensor]:
+        """For gt (n_free, B, H, W, C) f32: (t, frames (S·B, H, W, C) of
+        step t) → (3, S, B) ssim, psnr, mse by the route cfg selects."""
+        b, img = gt.shape[1], tuple(gt.shape[2:])
+        if use_kernel:
+            return lambda t, x_out: ssim_psnr_batch_cyclic(
+                gt[t], x_out.contiguous()).view(3, s_n, b)
+        pre = None if finn else {
+            k: v.reshape((n_free, b) + v.shape[1:])
+            for k, v in ssim_gt_precompute(gt.flatten(0, 1)).items()}
+        f = int(np.prod(img))
+        gs = gt.reshape(n_free, b, f)
+        g2 = (gs * gs).sum(-1)                               # (n_free, B)
+
+        def metrics(t: int, x_out: torch.Tensor) -> torch.Tensor:
+            xs = x_out.float().reshape((s_n, b) + img)
+            if finn:
+                s_v, q_v = finn_ssim_psnr_batch(gt[t], xs)
+            else:
+                s_v, q_v = ssim_psnr_batch_pre(
+                    {k: v[t] for k, v in pre.items()}, xs)
+            xf = xs.reshape(s_n, b, f)
+            cross = torch.bmm(xf.transpose(0, 1), gs[t][:, :, None])
+            m_v = ((xf * xf).sum(-1) - 2.0 * cross[..., 0].T
+                   + g2[t][None]) / f
+            return torch.stack([s_v, q_v, m_v])
+        return metrics
+
     @torch.inference_mode()
     def diverse_metrics(x, seed: int = 0, noise=None, device="cuda",
                         row_offset: int = 0) -> Dict[str, torch.Tensor]:
@@ -317,15 +361,15 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
         b = x.shape[1]
         eps_at = grid_noise(noise, seed, torch.arange(s_n),
                             row_offset + torch.arange(b))
-        gt = x[n_past:n_eval].float().contiguous()     # metrics vs f32 truth
+        # metrics against the f32 truth
+        score = step_metrics(x[n_past:n_eval].float().contiguous())
         m, cache, cache32 = prep()
         x = x.to(dtype)
         out = torch.empty((3, s_n, n_free, b), dtype=torch.float32,
                           device=x.device)
         for t, x_out in enumerate(rollout(m, cache, cache32, x, s_n, fork_15,
                                           eps_at)):
-            out[:, :, t] = ssim_psnr_batch_cyclic(
-                gt[t], x_out.contiguous()).view(3, s_n, b)
+            out[:, :, t] = score(t, x_out)
         return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
 
     @torch.inference_mode()
