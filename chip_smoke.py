@@ -49,7 +49,26 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      the GP-trigger run (50 strips, every decision firing at a positive
      margin on the seeded GP's constant variance); the Finn and
      kernel-free metric routes card against CPU on the tiny config, and
-     timed at full width beside K1's; and no PIL or imageio imported.
+     timed at full width beside K1's; and no PIL or imageio imported;
+ 11. [train] the train step (`dvg_tpu_torch.train`), which launches
+     neither kernel: (a) on a tiny config (B 8, T 6, g_dim 16), the
+     card's step in f64 and in f32 against the CPU's in f64, from the same
+     weights and clip, TF32 off and cuDNN deterministic: the joint pass's
+     metrics and gradients at the init, the statistics its fold leaves,
+     the finetune passes' losses, gradients and encode statistics at the
+     CPU's post-joint parameters, and the post-step encoder and decoder
+     wherever their gradient's sign is not rounding; in f32 a tensor the
+     clip makes ill-conditioned (its f64 gradient moves far under an
+     f32-sized perturbation, printed) is held to 100× that movement;
+     (b) at the bench's training geometry (DCGAN-64, 3 channels, B 50, T
+     15, g_dim 90, rnn 256×2, 40 inducing points, finetune passes on) in
+     f32 and bf16: ms per step by CUDA events over 20 pipelined steps on
+     one fixed batch after a warm-up step, peak memory, the bound and the
+     share of it, device time by kernel group, every metric finite and the
+     joint loss lower after the 20 steps than at step 0; (c) the training
+     CLI in-process on procedural smmnist digits at full width: 2 epochs
+     of 10 steps, a resumed third epoch from step 20, and the eval CLI
+     scoring the trained checkpoint with K1 launched 100 times per batch.
 Then one JSON line describing every kernel of the port, and last the
 device line.
 
@@ -107,6 +126,21 @@ CLI_TOL = {"float32": dict(ssim_atol=1e-5, psnr_atol=1e-3),
 ROUTE_TOL = dict(ssim_atol=5e-4, psnr_atol=1e-2, mse_rtol=1e-3)
 ROUTES = (("K1", {}), ("finn", dict(eval_metric="finn")),
           ("no_kernel", dict(use_pallas=False)))
+
+# the [train] phase: the card's f32 step against the CPU's f64 one
+TRAIN_TINY = dict(channels=3, image_width=64, g_dim=16, rnn_size=64,
+                  num_inducing_points=8, n_past=3, n_future=3, batch_size=8,
+                  epoch_size=5)
+TRAIN_TINY_SEED = 5       # the tiny clip
+TRAIN_TOL = dict(metric_rtol=1e-4, grad_rel=1e-4, stats_atol=1e-5,
+                 param_atol=1e-5)
+# the JAX bench's training geometry
+TRAIN_FULL = dict(channels=3, image_width=64, g_dim=90, rnn_size=256,
+                  predictor_rnn_layers=2, num_inducing_points=40, n_past=5,
+                  n_future=10, batch_size=50, epoch_size=300)
+TRAIN_STEPS = 20
+TRAIN_CLI_EPOCH = 10      # steps per epoch of the CLI run
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 K1_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
 PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
@@ -180,7 +214,8 @@ def device_kernels(fn):
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -734,7 +769,29 @@ KERNEL_GROUPS = (("K1 ssim_kernel (cyclic mode)", ("ssim_kernel",)),
                  ("conv (fprop)", ("fprop", "cutlass")),
                  ("cuDNN layout/padding", ("Padding", "ToNhwc", "ToNchw")),
                  ("elementwise (bias, skip add, leaky_relu, tanh)",
-                  ("elementwise",)))
+                  ("elementwise",)))     # the rest: LSTM, GP, reductions
+
+
+def print_kernel_groups(tag: str, kernels, busy: float, groups) -> None:
+    """Device ms by group, each kernel in the first group whose key its
+    name holds, and the top kernels by name."""
+    sums = {name: 0.0 for name, _ in groups}
+    rest = 0.0
+    by_name = {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us / 1e3, n + 1)
+        for name, keys in groups:
+            if any(k in e.name for k in keys):
+                sums[name] += us / 1e3
+                break
+        else:
+            rest += us / 1e3
+    for name, ms in list(sums.items()) + [("other", rest)]:
+        print(f"{tag} {ms:9.2f} ms ({ms / busy:6.1%})  {name}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"{tag} top {ms:8.2f} ms {n:5d}x  {name[:100]}")
 
 
 def phase_profile(fns, x):
@@ -744,20 +801,7 @@ def phase_profile(fns, x):
                                                                      seed=4))
     print(f"[profile] {len(kernels)} kernels, device busy {busy:.1f} ms of "
           f"a {span:.1f} ms span ({busy / span:.1%})")
-    rest = busy
-    for group, keys in KERNEL_GROUPS:
-        ms = sum(e.time_range.elapsed_us() for e in kernels
-                 if any(k in e.name for k in keys)) / 1e3
-        rest -= ms
-        print(f"[profile] {ms:9.2f} ms ({ms / busy:6.1%})  {group}")
-    print(f"[profile] {rest:9.2f} ms ({rest / busy:6.1%})  other (LSTM, GP, "
-          "reductions, copies)")
-    by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[profile] top {ms:9.2f} ms {n:5d}x  {name[:100]}")
+    print_kernel_groups("[profile]", kernels, busy, KERNEL_GROUPS)
 
 
 def cli_run(ckpt_dir: str, data_root: str, logs, *flags):
@@ -987,6 +1031,402 @@ def phase_cli(tmp: str):
     check(not loaded, f"the CLI phase imported {loaded}")
 
 
+# ---------------------------------------------------------------------------
+# [train]: the train step (phase 11)
+# ---------------------------------------------------------------------------
+
+def noise_bias(name: str) -> bool:
+    """A conv bias that feeds a train-mode BN: the BN subtracts the batch
+    mean it shifts, so its gradient is zero but for rounding, and Adam's
+    first step lr·g/(|g| + 1e-8) gives it the sign of that rounding."""
+    return name.endswith("conv.bias") and not name.startswith("decoder.final")
+
+
+def grad_errs(got: dict, want: dict, allow: dict):
+    """(worst ‖Δg‖/‖g‖ / allowed over the real gradients, its error and
+    tensor; worst ‖g‖ of a noise bias over ‖g‖ of its conv weight, on
+    either side)."""
+    rel, noise = (0.0, 0.0, ""), 0.0
+    for k, w in want.items():
+        g = got[k].to("cpu", w.dtype)
+        if noise_bias(k):
+            scale = want[k.replace("bias", "weight")].norm().item()
+            noise = max(noise, g.norm().item() / scale,
+                        w.norm().item() / scale)
+        else:
+            err = ((g - w).norm() / w.norm()).item()
+            rel = max(rel, (err / allow[k], err, k))
+    return rel, noise
+
+
+def stats_err(pairs) -> float:
+    """max |a − b| / max(1, |b|) over (a, b) pairs of BN statistics: an
+    absolute error where they are O(1), relative where (unit-gain weights)
+    the pre-BN maps' variances run to hundreds."""
+    return max(((a.double().cpu() - b.double().cpu()).abs()
+                / b.double().cpu().abs().clamp(min=1)).max().item()
+               for a, b in pairs)
+
+
+def joint_conditioning(model, x, cfg) -> dict:
+    """Per parameter, ‖Δg‖/‖g‖ of the joint pass's real gradients, in f64
+    on the CPU, when every weight and the clip move by an f32-sized
+    relative perturbation (1e-7·N(0, 1)): how far f32 rounding alone can
+    move them. Per-frame BN over a small batch makes some of them move
+    far more than the perturbation."""
+    import torch
+    from dvg_tpu_torch.train import step as train_step
+    plan = train_step.make_plan(cfg, x.shape[0], torch.device("cpu"))
+    gen = torch.Generator().manual_seed(0)
+
+    def grads(m, xx):
+        loss, *_ = train_step.joint_loss(m, xx, cfg, plan)
+        loss.backward()
+        return {k: p.grad for k, p in m.named_parameters()
+                if not noise_bias(k)}
+
+    x64 = torch.as_tensor(x)
+    g0 = grads(copy.deepcopy(model).double(), x64)
+    moved = copy.deepcopy(model).double()
+    with torch.no_grad():
+        for p in moved.parameters():
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen,
+                                          dtype=p.dtype))
+    g1 = grads(moved, x64 * (1 + 1e-7 * torch.randn(
+        x64.shape, generator=gen, dtype=x64.dtype)))
+    return {k: ((g1[k] - g0[k]).norm() / g0[k].norm()).item() for k in g0}
+
+
+def train_tiny_run(init, x, cfg, dev, dtype):
+    """The tiny config from `init` on `dev` in `dtype`: the joint pass's
+    gradients at the init, on the layout the step uses (so that cuDNN
+    takes the step's algorithms and the rounding is the step's); the model
+    after the joint pass alone (a step with cfg.ft off: its update and fold
+    are the full step's first half); the metrics and state of a full
+    step."""
+    import torch
+    from dvg_tpu_torch.train import make_train_step, train_state
+    from dvg_tpu_torch.train import step as train_step
+    model = train_state(copy.deepcopy(init).to(dev, dtype), cfg).model
+    plan = train_step.make_plan(cfg, cfg.seq_len_train, torch.device(dev))
+    loss, *_ = train_step.joint_loss(
+        model, torch.as_tensor(x, dtype=dtype, device=dev), cfg, plan)
+    loss.backward()
+    joint_cfg = cfg.replace(ft=False)
+    joint = train_state(copy.deepcopy(init).to(dev, dtype), joint_cfg)
+    make_train_step(joint_cfg)(joint, x)
+    state = train_state(copy.deepcopy(init).to(dev, dtype), cfg)
+    _, metrics = make_train_step(cfg)(state, x)
+    return {"grads": {k: p.grad for k, p in model.named_parameters()},
+            "snap": joint.model.cpu(), "state": state,
+            "metrics": {k: v.item() for k, v in metrics.items()}}
+
+
+def finetune_at(snap, x, cfg, dev, dtype):
+    """The finetune passes from `snap` on `dev` in `dtype`: (their
+    losses, LSTM grads, GP grads, per-frame encode statistics)."""
+    import torch
+    from dvg_tpu_torch.train import step as train_step
+    model = copy.deepcopy(snap).to(dev, dtype)
+    plan = train_step.make_plan(cfg, cfg.seq_len_train, torch.device(dev))
+    h_all, enc = train_step.finetune_encode(
+        model, torch.as_tensor(x, dtype=dtype, device=dev), plan)
+    out = []
+    for loss_fn, prefix in ((lambda: train_step.lstm_finetune_loss(
+            model, h_all, plan), ("frame_predictor",)),
+            (lambda: train_step.gp_finetune_loss(model, h_all),
+             ("gp.", "likelihood."))):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        out.append((loss.item(), {k: p.grad for k, p in
+                                  model.named_parameters()
+                                  if k.startswith(prefix)}))
+    return (out[0][0], out[1][0]), out[0][1], out[1][1], enc
+
+
+def phase_train_tiny():
+    """(a) of phase 11: one step of the tiny config on the card, in f64
+    and in f32, against one on the CPU in f64. f64 on the card holds the
+    port's card path to the CPU's; f32 holds its rounding, against the
+    tolerances or, for a tensor the clip makes ill-conditioned, 100× the
+    movement an f32-sized perturbation gives it in f64 (joint_conditioning)."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.config import DVGConfig
+    backends = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = DVGConfig(**TRAIN_TINY)
+    tol = TRAIN_TOL
+    x = np.random.RandomState(TRAIN_TINY_SEED).rand(
+        cfg.seq_len_train, cfg.batch_size, 64, 64, 3)
+    init = with_trained_gp(unit_gain_model(cfg, "cpu"), seed=2)
+    cond = joint_conditioning(init, x, cfg)
+    worst = sorted(cond.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[train tiny] B {cfg.batch_size} T {cfg.seq_len_train} g_dim "
+          f"{cfg.g_dim}; an f32-sized (1e-7) change of the weights and the "
+          f"clip moves the f64 joint grads by up to "
+          + ", ".join(f"{v:.1e} ({k})" for k, v in worst))
+    cpu = train_tiny_run(init, x, cfg, "cpu", torch.float64)
+    ft_cpu = finetune_at(cpu["snap"], x, cfg, "cpu", torch.float64)
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        allow = {k: tol["grad_rel"] if dtype == torch.float64 else
+                 max(tol["grad_rel"], 100 * c) for k, c in cond.items()}
+        card = train_tiny_run(init, x, cfg, CARD, dtype)
+        # the joint pass's metrics; the finetune losses are held below at
+        # the CPU's post-joint point (after its own joint step the card's
+        # params differ where Adam's first update took the sign of a
+        # rounding-level gradient)
+        rel = {k: abs(card["metrics"][k] - v) / abs(v)
+               for k, v in cpu["metrics"].items()}
+        m_err, m_at = max((v, k) for k, v in rel.items()
+                          if not k.startswith("ft_"))
+        (g_ratio, g_err, g_at), noise = grad_errs(card["grads"],
+                                                  cpu["grads"], allow)
+        snap_card = card["snap"].state_dict()
+        s_err = stats_err((snap_card[k], v) for k, v in
+                          cpu["snap"].state_dict().items() if "running" in k)
+        print(f"[train tiny] card {name} vs cpu f64: joint metrics max rel "
+              f"{m_err:.2e} ({m_at}; after each device's own joint step "
+              f"ft_mse_latent {rel['ft_mse_latent']:.1e}, ft_gp_nll "
+              f"{rel['ft_gp_nll']:.1e}); joint grads max rel {g_err:.2e} "
+              f"({g_at}, {g_ratio:.2f} of its allowance); noise biases' "
+              f"grads <= {noise:.1e} x their weights'; stats after the joint "
+              f"fold max err {s_err:.2e}  (tol {tol}; stats: abs where "
+              f"O(1), else relative)")
+        check(m_err <= tol["metric_rtol"], f"{name} metrics {m_err} {m_at}")
+        check(g_ratio <= 1, f"{name} joint grads {g_err} ({g_at})")
+        check(noise <= 1e-4, f"a noise bias has a real gradient: {noise}")
+        check(s_err <= tol["stats_atol"], f"{name} joint-fold stats {s_err}")
+
+        # the finetune passes on the card at the CPU's post-joint point
+        losses, fp, gp, enc = finetune_at(cpu["snap"], x, cfg, CARD, dtype)
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ft_cpu[0]))
+        (fp_ratio, fp_err, fp_at), _ = grad_errs(fp, ft_cpu[1], allow)
+        (gp_ratio, gp_err, gp_at), _ = grad_errs(gp, ft_cpu[2], allow)
+        e_err = stats_err((a, b) for pa, pb in zip(enc, ft_cpu[3])
+                          for a, b in zip(pa, pb))
+        print(f"[train tiny] card {name}, finetune passes at the CPU's "
+              f"post-joint params: losses max rel {l_err:.2e}; LSTM grads "
+              f"max rel {fp_err:.2e} ({fp_at}); GP grads max rel "
+              f"{gp_err:.2e} ({gp_at}); per-frame encode stats max err "
+              f"{e_err:.2e}")
+        check(l_err <= tol["metric_rtol"], f"{name} finetune losses {l_err}")
+        check(max(fp_ratio, gp_ratio) <= 1,
+              f"{name} finetune grads {fp_err} {gp_err}")
+        check(e_err <= tol["stats_atol"], f"{name} finetune stats {e_err}")
+
+        # post-step encoder and decoder params: stepped once, by the joint
+        # pass from identical params; compared where the gradient's sign
+        # is not set by rounding (|g| >= 1e-6, within 10% card vs CPU)
+        after = card["state"].model.state_dict()
+        ref = cpu["state"].model.state_dict()
+        worst_p, kept, total = 0.0, 0, 0
+        for k, g_cpu in cpu["grads"].items():
+            if not k.startswith(("encoder", "decoder")) or noise_bias(k):
+                continue
+            g_card = card["grads"][k].to("cpu", torch.float64)
+            sure = (g_cpu.abs() >= 1e-6) & ((g_card - g_cpu).abs()
+                                            <= 0.1 * g_cpu.abs())
+            d = (after[k].to("cpu", torch.float64) - ref[k]).abs()
+            worst_p = max(worst_p, d[sure].max().item())
+            kept, total = kept + int(sure.sum()), total + sure.numel()
+        print(f"[train tiny] card {name}, post-step encoder/decoder params "
+              f"(noise biases excluded) at the {kept} of {total} elements "
+              f"whose gradient sign is sure: max abs {worst_p:.2e} (atol "
+              f"{tol['param_atol']})")
+        check(worst_p <= tol["param_atol"], f"{name} post-step params "
+              f"{worst_p}")
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = backends
+
+
+def train_step_cost(cfg, n_params: int):
+    """(operations, bytes) one train step must at least do and move: the
+    convolutions and LSTM/linear GEMMs of the joint pass forward and
+    backward (twice the forward, less the unneeded input gradient of the
+    first conv) and the finetune encode and LSTM passes; the clip read once
+    and every parameter's Adam traffic (read p, g, m, v; write p, m, v) in
+    f32. The GP's 40×40 algebra (under 0.1 GFLOP) is left out."""
+    nf, c, g, h = 64, cfg.channels, cfg.g_dim, cfg.rnn_size
+    t, b = cfg.seq_len_train, cfg.batch_size
+    enc = [(32, c, nf), (16, nf, 2 * nf), (8, 2 * nf, 4 * nf),
+           (4, 4 * nf, 8 * nf), (1, 8 * nf, g)]      # (out side, c_in, c_out)
+    enc_f = sum(2 * s * s * co * 16 * ci for s, ci, co in enc)
+    first = 2 * 32 * 32 * nf * 16 * c
+    # transposed convs: 2·in_pixels·c_in·c_out·16; each stage's d half and
+    # skip half are equal, and the skip half runs once per unique frame
+    half = sum(2 * s * s * ci * co * 16 for s, ci, co in
+               ((4, 8 * nf, 4 * nf), (8, 4 * nf, 2 * nf), (16, 2 * nf, nf),
+                (32, nf, c)))
+    head = 2 * g * 8 * nf * 16
+    calls, uniq = 3 * (t - 1), max(cfg.n_past - 1, 1)
+    lstm = (t - 1) * b * (2 * g * h + cfg.predictor_rnn_layers * 16 * h * h
+                          + 2 * h * g)
+    joint = t * b * enc_f + calls * b * (head + half) + uniq * b * half + lstm
+    flops = 3 * joint - t * b * first + t * b * enc_f + 3 * lstm
+    nbytes = t * b * 64 * 64 * c * 4 + 7 * 4 * n_params
+    return flops, nbytes
+
+
+TRAIN_GROUPS = (("conv wgrad", ("wgrad",)),
+                ("conv dgrad (incl. transposed-conv forward)", ("dgrad",)),
+                ("conv fprop (incl. transposed-conv dgrad)",
+                 ("fprop", "implicit_convolve", "conv2d", "xmma", "cutlass")),
+                ("BN statistics (Welford)", ("Welford", "welford")),
+                ("other reductions", ("reduce_kernel",)),
+                ("LSTM (cuDNN RNN)", ("RNN", "rnn", "LSTM", "lstm",
+                                      "elemWise")),
+                ("GEMM / GP solves", ("gemm", "Gemm", "trsm", "potrf",
+                                      "cholesky", "geqrf")),
+                ("Adam (foreach)", ("multi_tensor_apply",)),
+                ("index_select / index_add", ("index",)),
+                ("copies and layout", ("copy", "Copy", "nchw", "nhwc",
+                                       "Nhwc", "Nchw", "Padding")),
+                ("elementwise", ("elementwise", "vectorized")))
+
+
+def phase_train_full():
+    """(b) of phase 11: the step at the bench's training geometry."""
+    import torch
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    from dvg_tpu_torch.train import init_train_state, make_train_step
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    for dtype in ("float32", "bfloat16"):
+        cfg = DVGConfig(**TRAIN_FULL, dtype=dtype)
+        # f32 means f32 arithmetic, as the training CLI runs it
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"
+        torch.backends.cuda.matmul.allow_tf32 = dtype != "float32"
+        state = init_train_state(cfg, device=CARD)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        g = torch.Generator(device=CARD).manual_seed(6)
+        x = torch.rand((cfg.seq_len_train, cfg.batch_size, 64, 64, 3),
+                       generator=g, device=CARD)
+        step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m0 = step(state, x)                 # warm-up: step 0's loss
+        loss0 = m0["loss"].item()
+        warm_s = time.perf_counter() - t0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ssim_psnr_batch_cyclic.launches = 0
+        ssim_psnr_batch_images.launches = 0
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_STEPS):
+            _, metrics = step(state, x)
+        end.record()
+        torch.cuda.synchronize()
+        launches = (ssim_psnr_batch_cyclic.launches,
+                    ssim_psnr_batch_images.launches)
+        host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        ms = start.elapsed_time(end) / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = all(torch.isfinite(v).item() for v in metrics.values())
+        loss = metrics["loss"].item()
+        flops, nbytes = train_step_cost(cfg, n_params)
+        rate = F32_FLOP_PER_S if dtype == "float32" else BF16_FLOP_PER_S
+        t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+        print(f"[train full] {dtype} DCGAN-64 C 3 B {cfg.batch_size} T "
+              f"{cfg.seq_len_train} g_dim {cfg.g_dim} rnn "
+              f"{cfg.rnn_size}x{cfg.predictor_rnn_layers} M "
+              f"{cfg.num_inducing_points} ft: {ms:.2f} ms/step (events, "
+              f"{TRAIN_STEPS} pipelined steps; host {host_ms:.2f} ms/step; "
+              f"warm-up step {warm_s:.2f} s, cudnn.benchmark on); peak mem "
+              f"{peak:.2f} GiB; {n_params:,} params; bound {b_ms:.2f} ms by "
+              f"{b_by} ({flops / 1e12:.3f} TFLOP at {rate / 1e12:.0f} "
+              f"TFLOP/s, {nbytes / 1e6:.0f} MB) = {b_ms / ms:.1%} of bound; "
+              f"loss step 0 {loss0:.4f} -> after {TRAIN_STEPS} steps "
+              f"{loss:.4f}; finite {finite}; K1, K2 launches {launches}")
+        check(finite, f"{dtype}: a train metric is not finite")
+        check(launches == (0, 0), f"the train step launched K1/K2 {launches}")
+        check(loss < loss0, f"{dtype}: the joint loss did not fall on a fixed "
+              f"batch ({loss0} -> {loss})")
+        check(all(p.dtype == torch.float32
+                  for p in state.model.parameters()),
+              "master params are not f32")
+        kernels, busy, span = device_kernels(lambda: step(state, x))
+        print(f"[train full] {dtype} profiled step: {len(kernels)} kernels, "
+              f"device busy {busy:.1f} ms of a {span:.1f} ms span "
+              f"({busy / span:.1%})")
+        print_kernel_groups(f"[train full] {dtype}", kernels, busy,
+                            TRAIN_GROUPS)
+        del state, x, step
+        torch.cuda.empty_cache()
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    torch.backends.cudnn.benchmark = False
+
+
+def phase_train_cli(tmp: str):
+    """(c) of phase 11: the training CLI trains, resumes and hands its
+    checkpoint to the eval CLI."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_checkpoint
+    from dvg_tpu_torch.cli import train as train_cli
+    tmp = Path(tmp)
+    run, no_mnist = tmp / "train_run", tmp / "train_no_mnist"
+    no_mnist.mkdir()
+    args = ["--dataset", "smmnist", "--data_root", str(no_mnist),
+            "--output_path", str(run), "--log_dir", str(run / "logs"),
+            "--epoch_size", str(TRAIN_CLI_EPOCH), "--ckpt_every", "1"]
+    t0 = time.perf_counter()
+    check(train_cli.main(args + ["--niter", "2"]) == 0, "train CLI failed")
+    first_s = time.perf_counter() - t0
+    files = sorted(p.name for p in run.iterdir())
+    recs = [r for r in read_records(run / "logs") if r["kind"] == "epoch"]
+    trained_cfg, _, payload = load_checkpoint(str(run))
+    step_two = int(payload["step"])
+    t0 = time.perf_counter()
+    check(train_cli.main(args + ["--niter", "3", "--resume"]) == 0,
+          "train CLI --resume failed")
+    resume_s = time.perf_counter() - t0
+    recs3 = [r for r in read_records(run / "logs") if r["kind"] == "epoch"]
+    step_three = int(load_checkpoint(str(run))[2]["step"])
+    for r in recs3:
+        print(f"[train cli] f32 smmnist C 1 B 50 T 15: epoch {r['step']} "
+              f"{r['step_s'] * TRAIN_CLI_EPOCH:.3f} s ({r['step_s'] * 1e3:.1f}"
+              f" ms/step), epoch_mse {r['epoch_mse']:.5f}")
+    print(f"[train cli] --niter 2: {first_s:.2f} s wall, files {files}, "
+          f"checkpoint step {step_two}; --resume --niter 3: {resume_s:.2f} s "
+          f"wall, epochs {[r['step'] for r in recs3]}, checkpoint step "
+          f"{step_three}")
+    want = {"model.ckpt", "sample_0.png", "sample_0.gif", "sample_1.png",
+            "sample_1.gif"}
+    check(want <= set(files), f"train CLI files {files}")
+    check([r["step"] for r in recs] == [0, 1], f"epoch records {recs}")
+    check(step_two == 2 * TRAIN_CLI_EPOCH and
+          step_three == 3 * TRAIN_CLI_EPOCH and
+          [r["step"] for r in recs3] == [0, 1, 2],
+          f"resume: steps {step_two}, {step_three}, records {recs3}")
+    check(all(math.isfinite(r["epoch_mse"]) for r in recs3),
+          "epoch_mse not finite")
+    wall, per_call, _, _, k2, peak = cli_run(str(run), str(no_mnist),
+                                             tmp / "train_eval")
+    print(f"[train cli] eval CLI on the trained checkpoint: {wall:.2f} s "
+          f"wall, K1 launches per batch {per_call}, K2 launches {k2}, peak "
+          f"{peak:.2f} GiB")
+    n_free = trained_cfg.generation_override().n_eval - trained_cfg.n_past
+    check(per_call == [n_free] * CLI_BATCHES,
+          f"K1 launches per batch {per_call}, want {n_free}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1014,6 +1454,9 @@ def main() -> int:
             del fns, x, out
             torch.cuda.empty_cache()
             phase_cli(tmp)
+            phase_train_tiny()
+            phase_train_full()
+            phase_train_cli(tmp)
         spilled = spills(resources)
         print(f"[build] {len(resources)} kernel instances, spills: "
               f"{spilled or 'none'}")

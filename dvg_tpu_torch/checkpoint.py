@@ -10,6 +10,8 @@ maps with sorted keys.
     cfg, model = load_model("runs/mnist", device="cuda")
     cfg, state_dict, payload = load_checkpoint("runs/mnist/model.ckpt")
     save_checkpoint("out", cfg, model, payload)
+    save_train_state("out", cfg, state)
+    cfg, state = load_train_state("out", device="cuda")
 
 `load_checkpoint` maps params and stats to a `DVGModel` state_dict through
 `convert.params_from_jax`; `save_checkpoint` maps a model back through
@@ -17,6 +19,11 @@ maps with sorted keys.
 payload through untouched, so a dvg_tpu training run can resume from it.
 Without a payload it writes empty optimizer states and step 0: a file
 `dvg_tpu` generation reads, but not one its training can resume from.
+
+`save_train_state` writes a whole TrainState of the port's trainer: the
+four optimizer groups' state in optax's layout (`train.optim`) and the
+step, so `dvg_tpu.train.load_checkpoint(path, target_state=…)` resumes it;
+`load_train_state` resumes the port from a file either package wrote.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from dvg_tpu_torch import _msgpack
 from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.convert import params_from_jax, params_to_jax
 from dvg_tpu_torch.models.dvg import DVGModel
+from dvg_tpu_torch.train.step import TrainState, train_state
 
 CKPT_NAME = "model.ckpt"
 PAYLOAD_KEYS = ("config", "opt_states", "params", "stats", "step")
@@ -84,6 +92,30 @@ def load_model(path: str, device="cuda") -> Tuple[DVGConfig, DVGModel]:
     model = DVGModel(cfg, device="cpu")
     model.load_state_dict(sd)
     return cfg, model.to(device)
+
+
+def load_train_state(path: str, device="cuda"
+                     ) -> Tuple[DVGConfig, TrainState]:
+    """(saved config, a TrainState on `device` with the file's weights,
+    optimizer state and step). A file without optimizer state (an eval
+    checkpoint) starts fresh optimizers at its step."""
+    cfg, sd, payload = load_checkpoint(path)
+    model = DVGModel(cfg, device="cpu")
+    model.load_state_dict(sd)
+    state = train_state(model.to(device), cfg,
+                        step=int(np.asarray(payload["step"])))
+    if payload["opt_states"]:
+        state.opts.load_jax(_lists(payload["opt_states"]),
+                            _lists(payload["stats"]), cfg)
+    return cfg, state
+
+
+def save_train_state(path: str, cfg: DVGConfig, state: TrainState) -> str:
+    """Write a TrainState in the dvg_tpu format;
+    `path` as for `save_checkpoint`. Returns the file written."""
+    return save_checkpoint(path, cfg, state.model, {
+        "opt_states": _state_dict(state.opts.to_jax(state.model, cfg)),
+        "step": np.asarray(state.step, np.int32)})
 
 
 def save_checkpoint(path: str, cfg: DVGConfig, model: DVGModel,

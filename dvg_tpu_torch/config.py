@@ -69,6 +69,10 @@ class DVGConfig:
     mesh_shape: tuple = ()
     jit_backend: str = ""
 
+    @property
+    def seq_len_train(self) -> int:
+        return self.n_past + self.n_future
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 

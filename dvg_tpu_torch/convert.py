@@ -11,8 +11,9 @@ Layout maps (the JAX package keeps NHWC activations and HWIO kernels):
   LSTMCell        (·, 4H) → (4H, ·)       w.T, gate order i, f, g, o in both
   BatchNorm       scale/bias/mean/var → weight/bias/running_mean/running_var
   GP, likelihood  same shapes and names
-Leaves may be numpy arrays or anything `np.asarray` takes. Every map is an
-exact permutation or flip of f32 values, so a round trip is bit-exact.
+Leaves may be numpy arrays or anything `np.asarray` takes. Values are f32,
+or f64 where they come in as f64 (the f64 parity tests). Every map is an
+exact permutation or flip, so a round trip is bit-exact.
 """
 
 from __future__ import annotations
@@ -25,8 +26,13 @@ import torch
 from dvg_tpu_torch.config import DVGConfig
 
 
+def _float_dtype(dtype) -> type:
+    return np.float64 if dtype == np.float64 else np.float32
+
+
 def _t(a) -> torch.Tensor:
-    return torch.tensor(np.array(a, np.float32))
+    a = np.asarray(a)
+    return torch.tensor(np.array(a, _float_dtype(a.dtype)))
 
 
 def conv_weight(w) -> torch.Tensor:
@@ -87,7 +93,11 @@ def params_from_jax(params: Dict, stats: Dict, cfg: DVGConfig
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().float().numpy()
+    """A copy, never a view of the tensor's memory: the port updates its
+    tensors in place, and a consumer may alias the numpy buffer it is
+    given (JAX does on the CPU)."""
+    t = t.detach().cpu()
+    return (t if t.dtype == torch.float64 else t.float()).numpy().copy()
 
 
 def _block_to_jax(sd: Dict[str, torch.Tensor], prefix: str, conv

@@ -10,11 +10,15 @@
 
 Every function here takes and returns NHWC tensors; inside, the convs run
 on NCHW-shaped channels_last views of the same memory.
+
+Train mode (`Encoder.train_forward`, `Decoder.grouped`) normalizes by the
+batch statistics of each call of a leading call axis and returns them, in
+at least f32, for the running-statistics fold of `train/step.py`.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,6 +51,26 @@ class Encoder(nn.Module):
         h = torch.tanh(self.head(h))
         return h.reshape(h.shape[0], -1), skips
 
+    def train_forward(self, x: torch.Tensor, calls: int,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                 List[L.BNStats]]:
+        """Train-mode encode of x (calls·B, H, W, C), `calls` frames of B
+        each normalized by its own batch statistics, in one conv pass per
+        block with every weight cast to `dtype` → (h (calls·B, dim), skips,
+        per-block statistics (calls, C), stages then head)."""
+        h = L.nchw(L.cast(x, dtype))
+        skips, stats = [], []
+        for stage in self.stages:
+            y, st = stage.train_forward(h, calls, dtype)
+            h = L.leaky_relu(y)
+            skips.append(L.nhwc(h))
+            stats.append(st)
+        y, st = self.head.train_forward(h, calls, dtype)
+        stats.append(st)
+        h = torch.tanh(y)
+        return h.reshape(h.shape[0], -1), skips, stats
+
     def fold_(self) -> None:
         """Fold every eval-mode BN into its conv, in place."""
         self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
@@ -75,6 +99,48 @@ class Decoder(nn.Module):
         transposed conv has no BN)."""
         self.head = L.fold_conv_bn(self.head)
         self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
+
+    def grouped(self, vecs: torch.Tensor, skips_u: List[torch.Tensor],
+                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+        """Train-mode decode of N latent calls whose skips come from a few
+        unique frames (`dvg_tpu`'s decoder_apply_grouped): vecs (N, B, dim),
+        skips_u per encoder stage (U, B, h, w, c), group_idx (N,) int64 —
+        call n reads the skips of unique frame group_idx[n].
+
+        Every stage's transposed conv splits by linearity over the channel
+        concat, convT(cat(d, s), W) = convT(d, W[:c_d]) + convT(s, W[c_d:]),
+        so the skip half runs once per unique frame (U·B) and reaches its
+        calls through an index_select (whose backward is an index_add).
+        Each call's BN uses its own batch statistics. In bf16 each half
+        rounds to bf16 before the sum, as in the JAX package. → (frames
+        (N, B, H, W, nc), per-call statistics (N, C) of the head and each
+        stage)."""
+        n, b = vecs.shape[0], vecs.shape[1]
+
+        def split_conv_t(conv: nn.Module, d: torch.Tensor,
+                         sk: torch.Tensor) -> torch.Tensor:
+            w = L.cast(conv.weight, dtype)
+            c_d = d.shape[1]
+            s_out = L.nhwc(F.conv_transpose2d(
+                L.nchw(L.cast(sk, dtype).flatten(0, 1)), w[c_d:], None, 2, 1))
+            s_b = s_out.unflatten(0, sk.shape[:2]).index_select(0, group_idx)
+            return (F.conv_transpose2d(d, w[:c_d], None, 2, 1)
+                    + L.nchw(s_b.flatten(0, 1))
+                    + L.cast(conv.bias, dtype)[:, None, None])
+
+        d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
+        y, st = self.head.train_forward(d, n, dtype)
+        d = L.leaky_relu(y)
+        stats = [st]
+        for stage, sk in zip(self.stages, reversed(skips_u)):
+            y, st = L.batch_norm_train(
+                split_conv_t(stage.conv, d, sk), L.cast(stage.bn.weight, dtype),
+                L.cast(stage.bn.bias, dtype), n)
+            d = L.leaky_relu(y)
+            stats.append(st)
+        y = split_conv_t(self.final, d, skips_u[0])
+        return L.nhwc(torch.tanh(y)).unflatten(0, (n, b)), stats
 
     def _weights(self):
         """(weight, bias) of every stage after the head, then the final —

@@ -4,8 +4,12 @@ its Gaussian likelihood, as one `nn.Module` whose state_dict is the port's
 checkpoint state (`convert.params_from_jax` builds one from the JAX
 package's pytrees).
 
-This slice is inference only: every parameter has requires_grad off and
-BatchNorm always applies its running statistics.
+Parameters are built with gradients on (torch's default): the train step
+(`train/step.py`) takes them through the train-mode pieces
+(`dcgan.Encoder.train_forward`, `dcgan.Decoder.grouped`,
+`LSTMPredictor.teacher_forced`, `gp.elbo`), and the entries below are the
+eval-mode ones, which BatchNorm runs with its running statistics. The
+rollouts call them under `torch.inference_mode()`, which records no graph.
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ class DVGModel(nn.Module):
         self.frame_predictor.init_cells(gen)
         self.gp.init(gen)
         self.likelihood.init()
-        self.requires_grad_(False)
         self.to(dev)
 
     @property

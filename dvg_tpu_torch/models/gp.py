@@ -1,6 +1,8 @@
-"""Inference half of the batched whitened SVGP (counterpart of
-`dvg_tpu/models/gp.py`: `gp_init`, `likelihood_init`, `_rbf`, `_kzz_chol`,
-`GPCache`/`build_cache`, `cached_mean_var`, `cached_rsample`).
+"""The batched whitened SVGP (counterpart of `dvg_tpu/models/gp.py`:
+`gp_init`, `likelihood_init`, `_rbf`, `_kzz_chol`, the differentiable
+`posterior`, `kl_divergence`, `expected_log_prob` and `elbo` that training
+takes gradients through, and `GPCache`/`build_cache`, `cached_mean_var`,
+`cached_rsample` for the rollouts).
 
 `num_tasks` (= g_dim) independent 1-D GPs, each with `num_inducing`
 inducing locations, a constant mean, a scaled RBF kernel and a whitened
@@ -10,20 +12,24 @@ With L = chol(K_ZZ + jitter·I) and W = L⁻ᵀ, the cache holds
   v1 = W m,  v2 = W L_S,
 so a rollout step needs one (D, B, M) kernel row and three small matmuls:
   mean = μ + K_XZ v1,  var = k(x,x) − ‖K_XZ W‖² + ‖K_XZ v2‖².
-The Cholesky and the triangular inverse run in f32.
+The Cholesky, the triangular solves and the ELBO run in at least f32 (f64
+parameters stay f64).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dvg_tpu_torch.models.layers import f32up
+
 JITTER = 1e-4
 NOISE_FLOOR = 1e-4
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 class SVGP(nn.Module):
@@ -74,11 +80,69 @@ def rbf(outputscale: torch.Tensor, lengthscale: torch.Tensor,
 
 
 def kzz_chol(gp: SVGP) -> torch.Tensor:
-    z = gp.z.float()
-    kzz = rbf(F.softplus(gp.raw_outputscale.float()),
-              F.softplus(gp.raw_lengthscale.float()), z, z)
+    z = f32up(gp.z)
+    kzz = rbf(F.softplus(f32up(gp.raw_outputscale)),
+              F.softplus(f32up(gp.raw_lengthscale)), z, z)
     eye = torch.eye(z.shape[1], dtype=kzz.dtype, device=kzz.device)
     return torch.linalg.cholesky(kzz + JITTER * eye)
+
+
+# ---------------------------------------------------------------------------
+# differentiable predictive posterior and ELBO (training)
+# ---------------------------------------------------------------------------
+
+class GPPosterior(NamedTuple):
+    mean: torch.Tensor        # (..., D, B)
+    var: torch.Tensor         # (..., D, B), noise not included
+
+
+def posterior(gp: SVGP, x: torch.Tensor) -> GPPosterior:
+    """q(f(x)) for x (..., D, B, 1), leading axes batched (the train step
+    passes its T−1 steps as one): A = K_XZ L⁻ᵀ by a triangular solve
+    against chol(K_ZZ + jitter), mean = μ + A m, var = k(x,x) − ‖A‖² +
+    ‖A L_S‖². Differentiable in every parameter and in x."""
+    l_k = kzz_chol(gp)                                         # (D, M, M)
+    dt = l_k.dtype
+    outputscale = F.softplus(gp.raw_outputscale.to(dt))
+    kxz = rbf(outputscale, F.softplus(gp.raw_lengthscale.to(dt)), x.to(dt),
+              gp.z.to(dt))                                     # (..., D, B, M)
+    a = torch.linalg.solve_triangular(l_k, kxz.transpose(-1, -2),
+                                      upper=False).transpose(-1, -2)
+    mean = gp.mean_const.to(dt)[:, None] + torch.einsum(
+        "...dbm,dm->...db", a, gp.var_mean.to(dt))
+    a_ls = torch.einsum("...dbm,dmn->...dbn", a, torch.tril(gp.var_chol.to(dt)))
+    var = (outputscale[:, None] - torch.sum(a * a, dim=-1)
+           + torch.sum(a_ls * a_ls, dim=-1))
+    return GPPosterior(mean, torch.clamp(var, min=1e-10))
+
+
+def kl_divergence(gp: SVGP) -> torch.Tensor:
+    """KL(q(v) ‖ N(0, I)) per task, (D,)."""
+    m = f32up(gp.var_mean)
+    l_s = torch.tril(f32up(gp.var_chol))
+    diag = torch.diagonal(l_s, dim1=-2, dim2=-1)
+    logdet_s = 2.0 * torch.sum(torch.log(torch.abs(diag) + 1e-20), dim=-1)
+    return 0.5 * (torch.sum(l_s * l_s, dim=(-2, -1)) + torch.sum(m * m, dim=-1)
+                  - m.shape[-1] - logdet_s)
+
+
+def expected_log_prob(mean_f: torch.Tensor, var_f: torch.Tensor,
+                      y: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """E_q(f)[log N(y | f, σ²)] per point."""
+    return -0.5 * (LOG_2PI + torch.log(noise)
+                   + ((y - mean_f) ** 2 + var_f) / noise)
+
+
+def elbo(gp: SVGP, lik: "GaussianLikelihood", x: torch.Tensor,
+         y: torch.Tensor, num_data: int,
+         post: Optional[GPPosterior] = None) -> torch.Tensor:
+    """Per-task ELBO (..., D): mean over the B points of the expected log
+    likelihood minus KL / num_data (gpytorch's VariationalELBO). x (..., D,
+    B, 1), y (..., D, B); `post`, if given, is posterior(gp, x)."""
+    post = posterior(gp, x) if post is None else post
+    noise = f32up(lik.noise_variance())[:, None]
+    ll = expected_log_prob(post.mean, post.var, y.to(post.mean.dtype), noise)
+    return ll.mean(dim=-1) - kl_divergence(gp) / num_data
 
 
 class GPCache(NamedTuple):
@@ -96,19 +160,20 @@ class GPCache(NamedTuple):
 
 
 def build_cache(gp: SVGP, lik: GaussianLikelihood) -> GPCache:
-    """Cache of the frozen GP, in f32 whatever the parameters' dtype."""
+    """Cache of the frozen GP, in at least f32 whatever the parameters'
+    dtype."""
     l_k = kzz_chol(gp)
     eye = torch.eye(l_k.shape[-1], dtype=l_k.dtype,
                     device=l_k.device).expand_as(l_k)
     w = torch.linalg.solve_triangular(l_k, eye, upper=False).transpose(1, 2)
-    v1 = torch.einsum("dmn,dn->dm", w, gp.var_mean.float())
-    v2 = torch.einsum("dmn,dnk->dmk", w, torch.tril(gp.var_chol.float()))
+    v1 = torch.einsum("dmn,dn->dm", w, f32up(gp.var_mean))
+    v2 = torch.einsum("dmn,dnk->dmk", w, torch.tril(f32up(gp.var_chol)))
     return GPCache(
-        w=w, v1=v1, v2=v2, z=gp.z.float(),
-        mean_const=gp.mean_const.float(),
-        lengthscale=F.softplus(gp.raw_lengthscale.float()),
-        outputscale=F.softplus(gp.raw_outputscale.float()),
-        noise=lik.noise_variance().float())
+        w=w, v1=v1, v2=v2, z=f32up(gp.z),
+        mean_const=f32up(gp.mean_const),
+        lengthscale=F.softplus(f32up(gp.raw_lengthscale)),
+        outputscale=F.softplus(f32up(gp.raw_outputscale)),
+        noise=f32up(lik.noise_variance()))
 
 
 def cached_mean_var(cache: GPCache, x: torch.Tensor

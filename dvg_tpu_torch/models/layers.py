@@ -1,5 +1,6 @@
-"""Layer pieces of the port: conv blocks with eval-mode BatchNorm, the
-torch-style transposed conv, LeakyReLU 0.2, BN folding and the init law.
+"""Layer pieces of the port: conv blocks with eval-mode and train-mode
+BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, BN folding and
+the init law.
 
 Counterpart of `dvg_tpu/models/layers.py`. Weights are kept in torch's own
 layouts (Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw)); the JAX
@@ -16,7 +17,7 @@ running mean 0 and variance 1.
 from __future__ import annotations
 
 import copy
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +25,28 @@ from torch import nn
 
 WEIGHT_STD = 0.02
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 NEGATIVE_SLOPE = 0.2
+
+# per-call batch statistics of one train-mode BN: (mean, unbiased variance),
+# each (calls, C) in at least f32
+BNStats = Tuple[torch.Tensor, torch.Tensor]
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least f32: the accumulation dtype of statistics and losses (f64
+    stays f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def f32up(t: torch.Tensor) -> torch.Tensor:
+    """t in at least f32 (f64 stays f64)."""
+    return t.to(acc_dtype(t.dtype))
+
+
+def cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`t` in the compute dtype (differentiable; `dtype` None keeps it)."""
+    return t if dtype is None else t.to(dtype)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -41,9 +63,42 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def conv_apply(conv: nn.Module, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """`conv` (Conv2d or ConvTranspose2d) on x with its weight and bias cast
+    to `dtype` by a differentiable cast, so the gradient reaches the f32
+    master weights."""
+    w, b = cast(conv.weight, dtype), cast(conv.bias, dtype)
+    if isinstance(conv, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, conv.stride, conv.padding)
+    return F.conv2d(x, w, b, conv.stride, conv.padding)
+
+
+def batch_norm_train(y: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, calls: int, eps: float = BN_EPS
+                     ) -> Tuple[torch.Tensor, BNStats]:
+    """Train-mode BatchNorm with per-call statistics: y (calls·b, C, H, W)
+    holds `calls` batches of b, each normalized over its own (b, H, W) by
+    its biased variance. The statistics and the affine run in at least f32
+    and the output comes back in y's dtype, as `dvg_tpu`'s batchnorm_apply.
+    Returns (out, (batch mean, unbiased variance)), both (calls, C),
+    detached, for the running-statistics fold; the buffers are left alone."""
+    at = acc_dtype(y.dtype)
+    y5 = y.unflatten(0, (calls, y.shape[0] // calls)).to(at)
+    var, mean = torch.var_mean(y5, dim=(1, 3, 4), correction=0)
+    n = y5.shape[1] * y5.shape[3] * y5.shape[4]
+    scale = torch.rsqrt(var + eps) * weight.to(at)
+    out = ((y5 - mean[:, None, :, None, None]) * scale[:, None, :, None, None]
+           + bias.to(at)[:, None, None])
+    unbiased = var.detach() * (n / max(n - 1, 1))
+    return out.to(y.dtype).flatten(0, 1), (mean.detach(), unbiased)
+
+
 class ConvBlock(nn.Module):
-    """A conv (plain or transposed) followed by eval-mode BatchNorm. After
-    `fold_conv_bn` the BN is gone and the conv carries it (`bn is None`)."""
+    """A conv (plain or transposed) followed by BatchNorm: eval mode in
+    `forward`, train mode with per-call batch statistics in `train_forward`.
+    After `fold_conv_bn` the BN is gone and the conv carries it (`bn is
+    None`)."""
 
     def __init__(self, conv: nn.Module, bn: Optional[nn.BatchNorm2d]):
         super().__init__()
@@ -57,6 +112,15 @@ class ConvBlock(nn.Module):
         return F.batch_norm(y, self.bn.running_mean, self.bn.running_var,
                             self.bn.weight, self.bn.bias, training=False,
                             eps=BN_EPS)
+
+    def train_forward(self, x: torch.Tensor, calls: int,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, BNStats]:
+        """Conv, then train-mode BN over each of the `calls` batches of x,
+        every weight cast to `dtype` → (y, per-call statistics)."""
+        return batch_norm_train(conv_apply(self.conv, x, dtype),
+                                cast(self.bn.weight, dtype),
+                                cast(self.bn.bias, dtype), calls)
 
 
 def conv_block(in_ch: int, out_ch: int, k: int, stride: int,

@@ -5,15 +5,23 @@ explicit value, (h, c) each stacked over layers as (n_layers, B, H).
 
 The embed/output Linears take the N(0, 0.02) law (layers.init_weights);
 the cells keep torch's U(−1/√H, 1/√H), drawn here from the generator.
+
+`teacher_forced` is the training form (`dvg_tpu`'s lstm_teacher_forced):
+its inputs are known up front, so embed and output run batched over time
+and only the recurrence is sequential, as one `torch.lstm` call over the
+cells' own weights (cuDNN's fused recurrence on the card).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from dvg_tpu_torch.models.layers import cast
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]
 
@@ -55,3 +63,20 @@ class LSTMPredictor(nn.Module):
             cs.append(c_new)
         out = torch.tanh(self.output(h_in))
         return out, (torch.stack(hs), torch.stack(cs))
+
+    def teacher_forced(self, x: torch.Tensor,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Predictions (T, B, output) for teacher-forced inputs x (T, B,
+        input), from the zero state, every weight cast to `dtype` by a
+        differentiable cast."""
+        x = cast(x, dtype)
+        e = F.linear(x, cast(self.embed.weight, dtype),
+                     cast(self.embed.bias, dtype))
+        flat = [cast(p, dtype) for cell in self.cells
+                for p in (cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                          cell.bias_hh)]
+        h0 = e.new_zeros((self.n_layers, x.shape[1], self.hidden_size))
+        out, _, _ = torch.lstm(e, (h0, h0), flat, True, self.n_layers, 0.0,
+                               torch.is_grad_enabled(), False, False)
+        return torch.tanh(F.linear(out, cast(self.output.weight, dtype),
+                                   cast(self.output.bias, dtype)))

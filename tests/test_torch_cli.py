@@ -220,6 +220,7 @@ def test_whole_run_without_pil_or_imageio(ckpt, tmp_path):
         for name in ("PIL", "imageio", "jax", "flax", "dvg_tpu"):
             sys.modules[name] = None
         from dvg_tpu_torch.cli.generate import main
+        import dvg_tpu_torch.train, dvg_tpu_torch.cli.train
         base = {cli_args(root / "run", tmp_path / "logs")!r}
         assert main(base) == 0
         assert main(base[:-1] + ["1", "--gp_trigger_flag",

@@ -10,13 +10,16 @@ tests/test_torch_*.py files. Tolerances as chip_smoke.py states them:
 K1 and K2 against plain SSIM atol 1e-4, PSNR atol 1e-3 dB, MSE rtol 1e-5;
 the tiny f32 slice card against CPU SSIM 1e-4, PSNR 1e-3 dB, MSE rtol 1e-4;
 gp_trigger card against CPU equal masks, frames atol 1e-4, values rtol
-1e-4."""
+1e-4; the tiny train step on the card (f64 and f32) against the CPU's f64
+step as chip_smoke.py's `phase_train_tiny` holds it; a TrainState written
+and read back on the card."""
 
 import numpy as np
 import pytest
 import torch
 
-from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
+from dvg_tpu_torch.checkpoint import (load_model, load_train_state,
+                                      save_checkpoint, save_train_state)
 from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.generate.rollout import make_rollout_fns
 from dvg_tpu_torch.models.dvg import DVGModel
@@ -24,6 +27,7 @@ from dvg_tpu_torch.ops import ssim as plain
 from dvg_tpu_torch.ops import ssim_cuda
 from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                          ssim_psnr_batch_images)
+from dvg_tpu_torch.train import init_train_state, make_train_step
 
 TINY = dict(channels=3, batch_size=2, n_past=2, n_eval=17, g_dim=16,
             rnn_size=64, num_inducing_points=8, nsample=3, use_pallas=True)
@@ -265,3 +269,34 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     assert want.keys() == got.keys()
     for k in want:
         assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k
+
+
+def test_train_step_card_matches_cpu(cuda):
+    """chip_smoke.py's tiny train phase: the card's step in f64 and f32
+    against the CPU's f64 step (metrics, each pass's gradients, the folded
+    statistics, the post-step encoder and decoder)."""
+    import chip_smoke
+    chip_smoke.phase_train_tiny()
+
+
+def test_train_state_round_trip_on_card(cuda, tmp_path):
+    cfg = DVGConfig(**dict(TINY, n_future=3, epoch_size=4, seed=4))
+    state = init_train_state(cfg, device="cuda")
+    step = make_train_step(cfg)
+    x = torch.rand((cfg.seq_len_train, 2, 64, 64, 3), device="cuda")
+    step(state, x)
+    path = save_train_state(str(tmp_path), cfg, state)
+    cfg2, loaded = load_train_state(path, device="cuda")
+    assert cfg2 == cfg and loaded.step == state.step == 1
+    assert loaded.opts.counts == state.opts.counts
+    want, got = state.model.state_dict(), loaded.model.state_dict()
+    for k in want:
+        assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k
+    for g, opt in state.opts.adam.items():
+        for p, q in zip(state.opts.params(g), loaded.opts.params(g)):
+            for key in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(opt.state[p][key],
+                                   loaded.opts.adam[g].state[q][key]), g
+    _, metrics = step(loaded, x)
+    assert loaded.step == 2
+    assert all(torch.isfinite(v).item() for v in metrics.values())

@@ -310,6 +310,7 @@ def test_package_imports_no_jax_and_nothing_of_dvg_tpu():
         from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
         import dvg_tpu_torch.convert, dvg_tpu_torch.ops.ssim_cuda
         import dvg_tpu_torch._msgpack, dvg_tpu_torch.models.gp
+        import dvg_tpu_torch.train, dvg_tpu_torch.cli.train
         cfg = DVGConfig(channels=3, batch_size=2, n_past=2, n_eval=17,
                         g_dim=16, rnn_size=64, num_inducing_points=8,
                         nsample=2, use_pallas=True)
