@@ -68,9 +68,23 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      joint loss lower after the 20 steps than at step 0; (c) the training
      CLI in-process on procedural smmnist digits at full width: 2 epochs
      of 10 steps, a resumed third epoch from step 20, and the eval CLI
-     scoring the trained checkpoint with K1 launched 100 times per batch.
-Then one JSON line describing every kernel of the port, and last the
-device line.
+     scoring the trained checkpoint with K1 launched 100 times per batch;
+ 12. [backbones] VGG-64, VGG-128 and DCGAN-128: (a) on tiny configs, card
+     against CPU, f32 `diverse_metrics` (K1 on the card, its plain version
+     on the CPU) and one f64 train step; (b) at full width in bf16, from
+     seeded weights written as a dvg_tpu checkpoint and read back, the
+     protocol (S 100, n_past 5, n_eval 105) on VGG-128 and DCGAN-128 at
+     bench.py's 128 px batch 8 and on VGG-64 at batch 50: ms and frames/s
+     of one timed run after a warm-up, K1 launches (100, counts set to 0
+     just before and read just after), peak memory, the card's busy share
+     and K1's µs per launch on the model's frames, device time by kernel
+     group, and the bound from the FLOPs counted; the VGG-128 train step
+     (bf16, B 8, T 15, --remat) over 20 pipelined steps, and one profiled; (c) the training CLI at --model vgg
+     --image_width 128 --remat --dtype bfloat16 for one short epoch, then
+     the eval CLI on its checkpoint: K1 100 launches per batch at 128 px,
+     C 1, and K2 scoring the re-roll.
+Each phase prints its seconds. Then one JSON line describing every kernel
+of the port, and last the device line.
 
 Needs one card. Imports nothing of JAX and nothing of `dvg_tpu`.
 """
@@ -141,6 +155,31 @@ TRAIN_FULL = dict(channels=3, image_width=64, g_dim=90, rnn_size=256,
 TRAIN_STEPS = 20
 TRAIN_CLI_EPOCH = 10      # steps per epoch of the CLI run
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+
+# [backbones]: the tiny configs (a fork at step 15), the full-width
+# protocol's batch per backbone (bench.py:67-74: 8 at 128 px) and the
+# VGG-128 train step, the JAX bench's vgg128 training cell (bench.py:437,
+# 489) at the training geometry above
+BACKBONES = (("VGG-128", dict(model="vgg", image_width=128), 8),
+             ("DCGAN-128", dict(model="dcgan", image_width=128), 8),
+             ("VGG-64", dict(model="vgg", image_width=64), 50))
+BB_TINY = dict(TINY, n_eval=17)
+BB_TRAIN_TINY = dict(channels=3, g_dim=16, rnn_size=64,
+                     num_inducing_points=8, n_past=2, n_future=1,
+                     batch_size=2, epoch_size=5)
+BB_F64_TOL = dict(metric_rtol=1e-9, grad_rel=1e-9, param_atol=1e-8,
+                  var_rtol=1e-6)
+BB_TRAIN = dict(TRAIN_FULL, model="vgg", image_width=128, batch_size=8,
+                dtype="bfloat16", remat=True)
+BB_CLI_STEPS = 5          # steps of the training CLI's one epoch
+# the eval CLI's bf16 re-roll on VGG-128 re-scored against the npz: the
+# 32-pair re-roll and the 800-row scored batch take different cuDNN
+# kernels, and 100 steps of a 26-conv backbone carry their bf16 rounding
+# further than DCGAN-64's (CLI_TOL): two runs measured 3.0e-3 and 6.3e-3
+# SSIM, 1.2e-2 and 1.6e-2 dB; the band is ~3x the larger. In f32 the
+# re-roll is exact ([backbones tiny], REROLL_TOL)
+BB_CLI_TOL = dict(ssim_atol=2e-2, psnr_atol=5e-2)
+CARD_LINE = ""            # nvidia-smi's name and power limit
 
 K1_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
 PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
@@ -249,7 +288,9 @@ def phase_environment():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD_LINE
+    CARD_LINE = smi.stdout.strip().splitlines()[0]
+    print(CARD_LINE)
     nvcc = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
     print(f"[env] python {sys.version.split()[0]}  torch {torch.__version__}"
@@ -859,6 +900,38 @@ def read_records(logs) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def rescore_best(logs, clips, best, n_past: int, s_n: int):
+    """The best-SSIM column of every GIF the eval CLI wrote (its frames held
+    before GIF encoding by `cli_run`), re-scored by K2 against its batch's
+    ground truth → ([max |Δssim|, max |Δpsnr|] against the npz scores of
+    that future, K2 launches)."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.generate.rollout import best_of_n
+    from dvg_tpu_torch.ops import ssim_cuda
+    worst = [0.0, 0.0]
+    ssim_cuda.ssim_psnr_batch_images.launches = 0
+    for bi, x in enumerate(clips):
+        b, w, n_free = x.shape[1], x.shape[2], x.shape[0] - n_past
+        arrs = np.load(Path(logs) / f"eval_batch{bi}.npz")
+        for k in ("ssim", "psnr"):
+            check(arrs[k].shape == (b, s_n, n_free),
+                  f"{k} shape {arrs[k].shape}")
+            check(bool(np.isfinite(arrs[k]).all()), f"{k} not finite")
+        idx, _ = best_of_n(torch.from_numpy(arrs["ssim"]))
+        for i in range(min(b, 10)):
+            tiles = best[f"sample_lstm_{bi * b + i}.gif"]
+            pred = torch.as_tensor(np.stack(
+                [t[1:w + 1, 1:w + 1, :x.shape[-1]] for t in tiles[n_past:]]),
+                device=CARD)
+            s_v, q_v, _ = ssim_cuda.ssim_psnr_batch_images(
+                x[n_past:, i].contiguous(), pred)
+            for j, (got, key) in enumerate(((s_v, "ssim"), (q_v, "psnr"))):
+                worst[j] = max(worst[j], float(np.abs(
+                    got.cpu().numpy() - arrs[key][i, int(idx[i])]).max()))
+    return worst, ssim_cuda.ssim_psnr_batch_images.launches
+
+
 def phase_cli(tmp: str):
     """The eval CLI at full width (module docstring, phase 10)."""
     import os
@@ -866,7 +939,7 @@ def phase_cli(tmp: str):
     import torch
     from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
     from dvg_tpu_torch.config import DVGConfig
-    from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
     from dvg_tpu_torch.ops import ssim as plain
     from dvg_tpu_torch.ops import ssim_cuda
     tmp = Path(tmp)
@@ -911,30 +984,11 @@ def phase_cli(tmp: str):
         check(len(evals) == CLI_BATCHES and len(times) == CLI_BATCHES,
               f"{len(evals)} eval and {len(times)} time records")
         check(len(gifs) == 10 * CLI_BATCHES, f"{len(gifs)} GIFs")
-        worst = [0.0, 0.0]
         for bi in range(CLI_BATCHES):
-            arrs = np.load(logs / f"eval_batch{bi}.npz")
-            for k in ("ssim", "psnr"):
-                check(arrs[k].shape == (b, s_n, n_free),
-                      f"{k} shape {arrs[k].shape}")
-                check(bool(np.isfinite(arrs[k]).all()), f"{k} not finite")
             check(all(np.isfinite(v) for v in (evals[bi]["ssim_best_mean"],
                                                evals[bi]["psnr_mean"])),
                   "eval record not finite")
-            idx, _ = best_of_n(torch.from_numpy(arrs["ssim"]))
-            x = clips[bi]
-            for i in range(10):
-                tiles = best[f"sample_lstm_{bi * b + i}.gif"]
-                pred = torch.as_tensor(np.stack(
-                    [t[1:65, 1:65, :1] for t in tiles[n_past:]]), device=CARD)
-                gt = x[n_past:, i].contiguous()
-                s_v, q_v, _ = ssim_cuda.ssim_psnr_batch_images(gt, pred)
-                want_s = arrs["ssim"][i, int(idx[i])]
-                want_q = arrs["psnr"][i, int(idx[i])]
-                worst[0] = max(worst[0], float(np.abs(
-                    s_v.cpu().numpy() - want_s).max()))
-                worst[1] = max(worst[1], float(np.abs(
-                    q_v.cpu().numpy() - want_q).max()))
+        worst, _ = rescore_best(logs, clips, best, n_past, s_n)
         tol = CLI_TOL[dtype]
         print(f"[cli] {dtype}: best-SSIM column of every GIF re-scored by K2 "
               f"vs the npz scores: max|dssim| {worst[0]:.3e}  max|dpsnr| "
@@ -1427,6 +1481,368 @@ def phase_train_cli(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [backbones]: VGG-64, VGG-128 and DCGAN-128 (phase 12)
+# ---------------------------------------------------------------------------
+
+def counted_flops(fn) -> int:
+    """The FLOPs of the convolutions and matrix products fn() runs
+    (torch.utils.flop_counter, from the ops' shapes; K1 and K2 are not
+    torch ops and are left out)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def phase_backbones_tiny():
+    """(a): each backbone's tiny config, card against CPU: f32
+    diverse_metrics (K1 on the card, its plain version on the CPU, TF32
+    off) at PATH_TOL; the exact re-roll on the card at REROLL_TOL; one f64
+    train step."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, kw, _ in BACKBONES:
+        cfg = DVGConfig(**dict(BB_TINY, **kw))
+        w, n_free = cfg.image_width, cfg.n_eval - cfg.n_past
+        rng = np.random.RandomState(0)
+        x = rng.rand(cfg.n_eval, cfg.batch_size, w, w, 3).astype(np.float32)
+        noise = rng.randn(n_free, cfg.nsample, cfg.batch_size,
+                          cfg.g_dim).astype(np.float32)
+        outs = {}
+        model = with_trained_gp(unit_gain_model(cfg, "cpu"), seed=2)
+        for dev in ("cpu", CARD):
+            ssim_psnr_batch_cyclic.launches = 0
+            fns = make_rollout_fns(copy.deepcopy(model).to(dev), cfg)
+            out = fns.diverse_metrics(x, noise=noise, device=dev)
+            if dev == CARD:
+                torch.cuda.synchronize()
+            launches = ssim_psnr_batch_cyclic.launches
+            outs[dev] = [out[k].cpu() for k in METRICS]
+        errs = max_errs(outs[CARD], outs["cpu"])
+        fork = n_free - 2                  # step 15 of n_past 2, n_eval 17
+        spread = np.ptp(outs["cpu"][2][:, fork].numpy(), axis=0).min()
+        print(f"[backbones tiny] {name} f32 diverse_metrics (S, n_free, B) "
+              f"{tuple(outs[CARD][0].shape)} card vs cpu: max|dssim| "
+              f"{errs[0]:.3e}  max|dpsnr| {errs[1]:.3e} dB  max rel dmse "
+              f"{errs[2]:.3e}  (tol {PATH_TOL}); K1 launches {launches}; "
+              f"samples' mse spread at the fork {spread:.2e}")
+        check(all(bool(torch.isfinite(v).all()) for v in outs[CARD]),
+              f"{name}: tiny metrics not finite")
+        check(within(errs, PATH_TOL), f"{name} tiny card vs CPU: {errs}")
+        check(launches == n_free, f"{name}: K1 launched {launches} times, "
+              f"not {n_free}")
+        # the exact re-roll on the card (f32): the futures that
+        # diverse_select_pairs re-rolls, scored by K2, give the scores K1
+        # gave them in the loop
+        met = fns.diverse_metrics(x, seed=11, device=CARD)
+        pairs = [(2, 1), (0, 0), (1, 1), (2, 0)]            # (sample, row)
+        ids, rows = [p[0] for p in pairs], [p[1] for p in pairs]
+        frames = fns.diverse_select_pairs(x[:, rows], ids, rows, seed=11,
+                                          device=CARD)
+        img = (w, w, 3)
+        scored = ssim_psnr_batch_images(
+            torch.as_tensor(x[cfg.n_past:, rows], device=CARD).reshape(
+                (-1,) + img), frames[cfg.n_past:].reshape((-1,) + img))
+        scored = [v.reshape(n_free, len(pairs)).cpu() for v in scored]
+        ref = [torch.stack([met[k][s, :, r].cpu() for s, r in pairs], dim=1)
+               for k in METRICS]
+        r_errs = max_errs(scored, ref)
+        print(f"[backbones tiny] {name} f32 re-roll of {len(pairs)} pairs "
+              f"scored by K2 vs their in-loop K1 scores: max|dssim| "
+              f"{r_errs[0]:.3e}  max|dpsnr| {r_errs[1]:.3e} dB  max rel "
+              f"dmse {r_errs[2]:.3e}  (tol {REROLL_TOL})")
+        check(within(r_errs, REROLL_TOL), f"{name}: the re-roll does not "
+              f"reproduce the scored futures: {r_errs}")
+        check(spread > 0, f"{name}: the fork did not separate the samples")
+        backbone_train_tiny(name, DVGConfig(**dict(BB_TRAIN_TINY, **kw)))
+
+
+def backbone_train_tiny(name: str, cfg):
+    """One f64 train step of `cfg` on the card against one on the CPU,
+    from the same unit-gain weights and clip (cuDNN deterministic): the
+    metrics, the joint pass's gradients at the init, the post-step encoder
+    and decoder weights where their gradient is at least 1e-6 (as phase
+    11a: Adam's first update is ±lr there, whatever the rounding; the conv
+    biases that feed a train-mode BN have rounding-level gradients and are
+    left out), and every running variance."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.train import make_train_step, train_state
+    from dvg_tpu_torch.train import step as train_step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    w, tol = cfg.image_width, BB_F64_TOL
+    x = np.random.RandomState(TRAIN_TINY_SEED).rand(
+        cfg.seq_len_train, cfg.batch_size, w, w, 3)
+    init = with_trained_gp(unit_gain_model(cfg, "cpu"), seed=2)
+    runs = {}
+    for dev in ("cpu", CARD):
+        model = train_state(copy.deepcopy(init).to(dev, torch.float64),
+                            cfg).model
+        plan = train_step.make_plan(cfg, cfg.seq_len_train,
+                                    torch.device(dev))
+        loss, *_ = train_step.joint_loss(
+            model, torch.as_tensor(x, device=dev), cfg, plan)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        state = train_state(copy.deepcopy(init).to(dev, torch.float64), cfg)
+        _, metrics = make_train_step(cfg)(state, x)
+        runs[dev] = (grads, {k: v.item() for k, v in metrics.items()},
+                     {k: v.cpu() for k, v in
+                      state.model.state_dict().items()})
+    torch.backends.cudnn.deterministic = deterministic
+    (g_card, m_card, sd_card), (g_cpu, m_cpu, sd_cpu) = runs[CARD], \
+        runs["cpu"]
+    m_err = max(abs(m_card[k] - v) / abs(v) for k, v in m_cpu.items())
+    (g_ratio, g_err, g_at), noise = grad_errs(
+        g_card, g_cpu, {k: tol["grad_rel"] for k in g_cpu})
+    p_err, p_at = 0.0, ""
+    for k, v in sd_cpu.items():
+        if not k.startswith(("encoder", "decoder")) or noise_bias(k) \
+                or k not in g_cpu:
+            continue
+        # where the update saturates at ±lr: near |g| ~ eps = 1e-8 Adam's
+        # first step moves a weight by lr/eps times the gradient's rounding
+        d = (sd_card[k] - v).abs()[g_cpu[k].abs() >= 1e-6]
+        if d.numel():
+            p_err, p_at = max((p_err, p_at), (d.max().item(), k))
+    v_err = max(((sd_card[k] - v).abs() / v.abs()).max().item()
+                for k, v in sd_cpu.items() if "running_var" in k)
+    print(f"[backbones tiny] {name} f64 train step B {cfg.batch_size} T "
+          f"{cfg.seq_len_train} card vs cpu: metrics max rel {m_err:.2e}; "
+          f"joint grads max rel {g_err:.2e} ({g_at}); noise biases' grads "
+          f"<= {noise:.1e} x their weights'; post-step encoder/decoder "
+          f"weights where |g| >= 1e-6 max abs err {p_err:.2e} ({p_at}); "
+          f"running variances max rel err {v_err:.2e}  (tol {tol})")
+    check(m_err <= tol["metric_rtol"], f"{name} f64 metrics {m_err}")
+    check(g_ratio <= 1, f"{name} f64 joint grads {g_err} ({g_at})")
+    check(noise <= 1e-4, f"{name}: a noise bias has a real gradient")
+    check(p_err <= tol["param_atol"], f"{name} f64 post-step {p_at} "
+          f"{p_err}")
+    check(v_err <= tol["var_rtol"], f"{name} f64 running variances {v_err}")
+
+
+def phase_backbones_full(tmp: str) -> dict:
+    """(b): each backbone at full width in bf16 from a dvg_tpu checkpoint
+    of seeded weights: the protocol timed, K1 counted, profiled, and its
+    bound from the counted FLOPs."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.models.dvg import DVGModel
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    results = {}
+    for name, kw, b in BACKBONES:
+        t0 = time.perf_counter()
+        cfg = DVGConfig(**dict(HEADLINE, **kw, batch_size=b))
+        model = DVGModel(cfg, seed=0, device=CARD)
+        path = save_checkpoint(str(Path(tmp) / f"bb_{name}"), cfg, model)
+        cfg2, loaded = load_model(path, device=CARD)
+        want, got = model.state_dict(), loaded.state_dict()
+        check(cfg2 == cfg and want.keys() == got.keys() and all(
+            torch.equal(want[k], got[k]) for k in want),
+            f"{name}: the checkpoint did not come back equal")
+        del model, want, got
+        s_n, w = cfg.nsample, cfg.image_width
+        n_free = cfg.n_eval - cfg.n_past
+        g = torch.Generator(device=CARD).manual_seed(1)
+        x = torch.rand((cfg.n_eval, b, w, w, 3), generator=g, device=CARD)
+        fns = make_rollout_fns(loaded, cfg2)
+        fns.diverse_metrics(x, seed=2)                   # warm-up
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ssim_psnr_batch_cyclic.launches = 0
+        ssim_psnr_batch_images.launches = 0
+        out, ms = events_ms(lambda: fns.diverse_metrics(x, seed=MAIN_SEED))
+        launches = (ssim_psnr_batch_cyclic.launches,
+                    ssim_psnr_batch_images.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        frames = s_n * n_free * b
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        for k, v in out.items():
+            check(tuple(v.shape) == (s_n, n_free, b),
+                  f"{name} {k} shape {tuple(v.shape)}")
+        check(finite, f"{name}: a protocol metric is not finite")
+        check(launches == (n_free, 0), f"{name}: K1, K2 launched "
+              f"{launches} times, want ({n_free}, 0)")
+        kernels, busy, span = device_kernels(
+            lambda: fns.diverse_metrics(x, seed=4))
+        k1 = [e.time_range.elapsed_us() for e in kernels
+              if "ssim_kernel" in e.name]
+        k1_us = sum(k1) / max(len(k1), 1)
+        k1_bytes, k1_flops = k1_cost(s_n, b, w, w, 3, 2)
+        k1_bound_us = bound(k1_bytes, k1_flops)[0] * 1e3
+        f1, f2 = (counted_flops(lambda n=n: make_rollout_fns(
+            loaded, cfg2.replace(nsample=n)).diverse_metrics(x, seed=5))
+            for n in (1, 2))
+        flops = f1 + (s_n - 1) * (f2 - f1)
+        b_ms = flops / BF16_FLOP_PER_S * 1e3
+        print(f"[backbones full] {name} bf16 S {s_n} B {b} n_free {n_free} "
+              f"({CARD_LINE}): {ms:.1f} ms/protocol, {frames / (ms / 1e3):,.0f}"
+              f" frames/s; K1 launches {launches[0]}, K2 {launches[1]}; "
+              f"peak mem {peak:.2f} GiB; card busy {busy / span:.1%} of the "
+              f"profiled run ({len(kernels)} kernels); K1 on the model's "
+              f"{w} px frames {k1_us:.1f} us/launch ({len(k1)} launches "
+              f"profiled; bound {k1_bound_us:.1f} us); {flops / 1e15:.4f} "
+              f"PFLOP counted ({flops / (s_n * n_free * b) / 1e9:.2f} GFLOP "
+              f"per frame) -> bound {b_ms:.1f} ms at "
+              f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s = {b_ms / ms:.1%}; "
+              f"set-up + warm-up {setup_s:.1f} s")
+        print_kernel_groups(f"[backbones full] {name}", kernels, busy,
+                            KERNEL_GROUPS)
+        print(f"[backbones full] {name} mean ssim "
+              f"{out['ssim'].mean().item():.5f}  mean psnr "
+              f"{out['psnr'].mean().item():.4f} dB  mean mse "
+              f"{out['mse'].mean().item():.5f}")
+        results[name] = dict(ms=ms, fps=frames / (ms / 1e3), k1_us=k1_us,
+                             launches=launches[0])
+        del fns, loaded, x, out, kernels
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_backbones_train():
+    """(b): the VGG-128 train step in bf16 at B 8, T 15, --remat."""
+    import torch
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    from dvg_tpu_torch.train import init_train_state, make_train_step
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+    cfg = DVGConfig(**BB_TRAIN)
+    t, b, w = cfg.seq_len_train, cfg.batch_size, cfg.image_width
+    g = torch.Generator(device=CARD).manual_seed(6)
+    x = torch.rand((t, b, w, w, 3), generator=g, device=CARD)
+    # the work one step must do: counted at B 1 without remat (every conv
+    # and GEMM is linear in B; the recomputation is not needed work)
+    one = cfg.replace(batch_size=1, remat=False)
+    flops = b * counted_flops(lambda: make_train_step(one)(
+        init_train_state(one, device=CARD), x[:, :1]))
+    state = init_train_state(cfg, device=CARD)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m0 = step(state, x)
+    loss0 = m0["loss"].item()
+    warm_s = time.perf_counter() - t0
+    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_images.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        _, metrics = step(state, x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = (ssim_psnr_batch_cyclic.launches,
+                ssim_psnr_batch_images.launches)
+    finite = all(torch.isfinite(v).item() for v in metrics.values())
+    loss = metrics["loss"].item()
+    nbytes = x.numel() * 4 + 7 * 4 * n_params
+    b_ms, b_by = max((flops / BF16_FLOP_PER_S * 1e3, "operations"),
+                     (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    print(f"[backbones train] VGG-128 bf16 C 3 B {b} T {t} g_dim "
+          f"{cfg.g_dim} rnn {cfg.rnn_size}x{cfg.predictor_rnn_layers} M "
+          f"{cfg.num_inducing_points} ft remat ({CARD_LINE}): {ms:.2f} "
+          f"ms/step (events, {TRAIN_STEPS} pipelined steps; warm-up step "
+          f"{warm_s:.2f} s); peak mem {peak:.2f} GiB; {n_params:,} params; "
+          f"bound {b_ms:.2f} ms by {b_by} ({flops / 1e12:.3f} TFLOP counted "
+          f"at B 1 x {b}) = {b_ms / ms:.1%}; loss step 0 {loss0:.4f} -> "
+          f"after {TRAIN_STEPS} steps {loss:.4f}; finite {finite}; K1, K2 "
+          f"launches {launches}")
+    check(finite, "VGG-128: a train metric is not finite")
+    check(launches == (0, 0), f"the train step launched K1/K2 {launches}")
+    check(loss < loss0, f"VGG-128: the joint loss did not fall ({loss0} -> "
+          f"{loss})")
+    kernels, busy, span = device_kernels(lambda: step(state, x))
+    print(f"[backbones train] VGG-128 profiled step: {len(kernels)} "
+          f"kernels, device busy {busy:.1f} ms of a {span:.1f} ms span "
+          f"({busy / span:.1%})")
+    print_kernel_groups("[backbones train] VGG-128", kernels, busy,
+                        TRAIN_GROUPS)
+    del state, step, x
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_backbones_cli(tmp: str):
+    """(c): the training CLI on VGG-128 for one short epoch, then the eval
+    CLI on its checkpoint."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_checkpoint
+    from dvg_tpu_torch.cli import train as train_cli
+    tmp = Path(tmp)
+    run, no_mnist = tmp / "bb_train_run", tmp / "bb_no_mnist"
+    no_mnist.mkdir()
+    t0 = time.perf_counter()
+    check(train_cli.main([
+        "--dataset", "smmnist", "--data_root", str(no_mnist),
+        "--output_path", str(run), "--log_dir", str(run / "logs"),
+        "--model", "vgg", "--image_width", "128", "--remat", "--dtype",
+        "bfloat16", "--batch_size", "8", "--epoch_size", str(BB_CLI_STEPS),
+        "--niter", "1", "--ckpt_every", "1"]) == 0, "VGG-128 train CLI")
+    train_s = time.perf_counter() - t0
+    recs = [r for r in read_records(run / "logs") if r["kind"] == "epoch"]
+    cfg, _, payload = load_checkpoint(str(run))
+    files = sorted(p.name for p in run.iterdir())
+    print(f"[backbones cli] train --model vgg --image_width 128 --remat "
+          f"--dtype bfloat16, smmnist C 1 B 8, {BB_CLI_STEPS} steps: "
+          f"{train_s:.2f} s wall, step {recs[0]['step_s'] * 1e3:.1f} ms, "
+          f"epoch_mse {recs[0]['epoch_mse']:.5f}; checkpoint {cfg.model} "
+          f"{cfg.image_width} px C {cfg.channels} step "
+          f"{int(payload['step'])}; files {files}")
+    check(cfg.model == "vgg" and cfg.image_width == 128
+          and cfg.channels == 1, f"checkpoint config {cfg}")
+    check(int(payload["step"]) == BB_CLI_STEPS and len(recs) == 1
+          and math.isfinite(recs[0]["epoch_mse"]),
+          f"train CLI records {recs}, step {int(payload['step'])}")
+    check({"model.ckpt", "sample_0.png", "sample_0.gif"} <= set(files),
+          f"train CLI files {files}")
+    logs = tmp / "bb_eval"
+    wall, per_call, clips, best, k2_cli, peak = cli_run(
+        str(run), str(no_mnist), logs, "--dtype", "bfloat16",
+        "--override_batch_size", "8")
+    gen = cfg.generation_override()
+    n_free = gen.n_eval - gen.n_past
+    worst, k2 = rescore_best(logs, clips, best, gen.n_past, 100)
+    tol = BB_CLI_TOL
+    print(f"[backbones cli] eval CLI on it, bf16 B 8 ({CARD_LINE}): "
+          f"{wall:.2f} s wall for {CLI_BATCHES} batches, K1 launches per "
+          f"batch {per_call} on {tuple(clips[0].shape[2:])} frames, peak "
+          f"{peak:.2f} GiB; the re-rolled best-SSIM column of its "
+          f"{len(best)} GIFs scored by K2 ({k2} launches) vs the npz: "
+          f"max|dssim| {worst[0]:.3e}  max|dpsnr| {worst[1]:.3e} dB  (tol "
+          f"{tol})")
+    check(tuple(clips[0].shape[2:]) == (128, 128, 1),
+          f"eval frames {tuple(clips[0].shape)}")
+    check(per_call == [n_free] * CLI_BATCHES,
+          f"K1 launches per batch {per_call}, want {n_free}")
+    check(k2_cli == 0 and k2 == len(best) == 8 * CLI_BATCHES,
+          f"K2 launches: {k2_cli} in the CLI, {k2} re-scoring {len(best)} "
+          "GIFs")
+    check(worst[0] <= tol["ssim_atol"] and worst[1] <= tol["psnr_atol"],
+          f"VGG-128: the GIF's best column is not the scored future: "
+          f"{worst}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1440,27 +1856,46 @@ def main() -> int:
         print(f"chip_smoke: the dvg_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
+    started = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        resources = phase_environment()
-        k1 = phase_k1()
-        k2 = phase_k2(resources)
+        resources = timed("environment and build", phase_environment)
+        k1 = timed("k1", phase_k1)
+        k2 = timed("k2", phase_k2, resources)
         with tempfile.TemporaryDirectory(prefix="dvg_smoke_") as tmp:
-            ckpt = phase_checkpoint(tmp)
-            phase_tiny()
-            phase_gen_tiny()
-            cfg, fns, x, out, k1["launches"] = phase_main(ckpt)
-            k2["launches"] = phase_gen_full(cfg, fns, x, out)
-            phase_profile(fns, x)
+            ckpt = timed("ckpt", phase_checkpoint, tmp)
+            timed("tiny", phase_tiny)
+            timed("gen-tiny", phase_gen_tiny)
+            cfg, fns, x, out, k1["launches"] = timed("main", phase_main, ckpt)
+            k2["launches"] = timed("gen-full", phase_gen_full, cfg, fns, x,
+                                   out)
+            timed("profile", phase_profile, fns, x)
             del fns, x, out
             torch.cuda.empty_cache()
-            phase_cli(tmp)
-            phase_train_tiny()
-            phase_train_full()
-            phase_train_cli(tmp)
+            timed("cli", phase_cli, tmp)
+            timed("train tiny", phase_train_tiny)
+            timed("train full", phase_train_full)
+            timed("train cli", phase_train_cli, tmp)
+            timed("backbones tiny", phase_backbones_tiny)
+            full = timed("backbones full", phase_backbones_full, tmp)
+            train_ms = timed("backbones train", phase_backbones_train)
+            timed("backbones cli", phase_backbones_cli, tmp)
+        print(f"[backbones] {CARD_LINE}: " + "; ".join(
+            f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
+            f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"
+            for name, r in full.items())
+            + f"; VGG-128 bf16 train step {train_ms:.2f} ms")
         spilled = spills(resources)
         print(f"[build] {len(resources)} kernel instances, spills: "
               f"{spilled or 'none'}")
         check(not spilled, f"ptxas reports spills: {spilled}")
+        print(f"[time] total {time.perf_counter() - started:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,14 +8,16 @@ asks for the CPU, and raise where there is no card. Public tensors keep the
 JAX package's layouts: NHWC images, (T, B, H, W, C) clips and
 (S, n_free, B) metrics.
 
-Ported so far: generation for DCGAN-64 (`generate.rollout.make_rollout_fns`:
-posterior, diverse, diverse_metrics, the exact re-rolls, plot_samples and
-gp_trigger) with both hand-written CUDA metric kernels (`ops/ssim_cuda.py`,
-`csrc/ssim_cyclic.cu`) and the Finn and kernel-free metric routes
-(`ops/ssim.py`), the `dvg_tpu` checkpoint format (`checkpoint.py`), the
-datasets and loader (`data/`), and the eval CLI
+Ported so far, for the four backbones DCGAN-64, DCGAN-128, VGG-64 and
+VGG-128 (`models/registry.py`): generation (`generate.rollout.
+make_rollout_fns`: posterior, diverse, diverse_metrics, the exact re-rolls,
+plot_samples and gp_trigger) with both hand-written CUDA metric kernels
+(`ops/ssim_cuda.py`, `csrc/ssim_cyclic.cu`) and the Finn and kernel-free
+metric routes (`ops/ssim.py`), the `dvg_tpu` checkpoint format
+(`checkpoint.py`), the datasets and loader (`data/`), the eval CLI
 (`python -m dvg_tpu_torch.cli.generate`) with its PNG/GIF writers, logging
-and profiling (`utils/`), none of which needs PIL or imageio.
+and profiling (`utils/`), none of which needs PIL or imageio, and
+single-device training (`train/`, `python -m dvg_tpu_torch.cli.train`).
 """
 
 __version__ = "0.1.0"

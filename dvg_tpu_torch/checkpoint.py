@@ -11,7 +11,7 @@ maps with sorted keys.
     cfg, state_dict, payload = load_checkpoint("runs/mnist/model.ckpt")
     save_checkpoint("out", cfg, model, payload)
     save_train_state("out", cfg, state)
-    cfg, state = load_train_state("out", device="cuda")
+    saved_cfg, state = load_train_state("out", run_cfg, device="cuda")
 
 `load_checkpoint` maps params and stats to a `DVGModel` state_dict through
 `convert.params_from_jax`; `save_checkpoint` maps a model back through
@@ -23,7 +23,9 @@ Without a payload it writes empty optimizer states and step 0: a file
 `save_train_state` writes a whole TrainState of the port's trainer: the
 four optimizer groups' state in optax's layout (`train.optim`) and the
 step, so `dvg_tpu.train.load_checkpoint(path, target_state=…)` resumes it;
-`load_train_state` resumes the port from a file either package wrote.
+`load_train_state` resumes the port from a file either package wrote,
+under the run's config, as `dvg_tpu`'s `load_checkpoint(target_state=…)`
+does.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import torch
 
 from dvg_tpu_torch import _msgpack
 from dvg_tpu_torch.config import DVGConfig
-from dvg_tpu_torch.convert import params_from_jax, params_to_jax
+from dvg_tpu_torch.convert import _lists, params_from_jax, params_to_jax
 from dvg_tpu_torch.models.dvg import DVGModel
 from dvg_tpu_torch.train.step import TrainState, train_state
 
@@ -47,17 +49,6 @@ PAYLOAD_KEYS = ("config", "opt_states", "params", "stats", "step")
 
 def _file(path: str) -> str:
     return os.path.join(path, CKPT_NAME) if os.path.isdir(path) else path
-
-
-def _lists(tree: Any) -> Any:
-    """A flax state dict → the JAX package's pytree: maps keyed exactly
-    "0".."n−1" become lists."""
-    if not isinstance(tree, dict):
-        return tree
-    out = {k: _lists(v) for k, v in tree.items()}
-    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
-        return [out[str(i)] for i in range(len(out))]
-    return out
 
 
 def _state_dict(tree: Any) -> Any:
@@ -70,17 +61,21 @@ def _state_dict(tree: Any) -> Any:
     return tree
 
 
-def load_checkpoint(path: str) -> Tuple[DVGConfig, Dict[str, torch.Tensor],
-                                        Dict[str, Any]]:
-    """`path` (a file, or a directory holding model.ckpt) → (its config, a
-    state_dict for `DVGModel(cfg)` on the CPU, the decoded payload)."""
+def _payload(path: str) -> Tuple[DVGConfig, Dict[str, Any]]:
     with open(_file(path), "rb") as f:
         payload = _msgpack.unpackb(f.read())
     if not isinstance(payload, dict) or set(payload) != set(PAYLOAD_KEYS):
         keys = sorted(payload) if isinstance(payload, dict) else payload
         raise ValueError(f"{path}: not a dvg_tpu checkpoint (top-level "
                          f"entries {keys}, want {list(PAYLOAD_KEYS)})")
-    cfg = DVGConfig.from_dict(json.loads(payload["config"]))
+    return DVGConfig.from_dict(json.loads(payload["config"])), payload
+
+
+def load_checkpoint(path: str) -> Tuple[DVGConfig, Dict[str, torch.Tensor],
+                                        Dict[str, Any]]:
+    """`path` (a file, or a directory holding model.ckpt) → (its config, a
+    state_dict for `DVGModel(cfg)` on the CPU, the decoded payload)."""
+    cfg, payload = _payload(path)
     sd = params_from_jax(_lists(payload["params"]), _lists(payload["stats"]),
                          cfg)
     return cfg, sd, payload
@@ -94,20 +89,28 @@ def load_model(path: str, device="cuda") -> Tuple[DVGConfig, DVGModel]:
     return cfg, model.to(device)
 
 
-def load_train_state(path: str, device="cuda"
-                     ) -> Tuple[DVGConfig, TrainState]:
-    """(saved config, a TrainState on `device` with the file's weights,
-    optimizer state and step). A file without optimizer state (an eval
-    checkpoint) starts fresh optimizers at its step."""
-    cfg, sd, payload = load_checkpoint(path)
+def load_train_state(path: str, cfg: Optional[DVGConfig] = None,
+                     device="cuda") -> Tuple[DVGConfig, TrainState]:
+    """(the file's config, a TrainState on `device`). With `cfg`, the run's
+    config, the model and its optimizers are built from `cfg`, as
+    `dvg_tpu`'s training CLI builds them from its command line, and the
+    file provides only its leaves: parameters and BN statistics, Adam
+    moments, update counts and the step; its learning rates, beta1, GP
+    schedule and updates per batch are the run's. Without `cfg`, the
+    file's config stands in for it. A file of another backbone raises
+    ValueError, and leaves of other shapes raise `load_state_dict`'s
+    RuntimeError, naming the leaf. A file without optimizer state (an
+    eval checkpoint) starts fresh optimizers at its step."""
+    saved_cfg, payload = _payload(path)
+    cfg = cfg or saved_cfg
+    params, stats = _lists(payload["params"]), _lists(payload["stats"])
     model = DVGModel(cfg, device="cpu")
-    model.load_state_dict(sd)
+    model.load_state_dict(params_from_jax(params, stats, cfg))
     state = train_state(model.to(device), cfg,
                         step=int(np.asarray(payload["step"])))
     if payload["opt_states"]:
-        state.opts.load_jax(_lists(payload["opt_states"]),
-                            _lists(payload["stats"]), cfg)
-    return cfg, state
+        state.opts.load_jax(_lists(payload["opt_states"]), stats, cfg)
+    return saved_cfg, state
 
 
 def save_train_state(path: str, cfg: DVGConfig, state: TrainState) -> str:

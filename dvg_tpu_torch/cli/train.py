@@ -5,8 +5,12 @@ same flags and defaults, plus --device):
         --output_path RUN --log_dir RUN/logs [--device cuda|cpu] ...
 
   * seeded weights (--seed), or with --resume the TrainState in
-    <output_path>/model.ckpt, written by either package; the run continues
-    the Loader's batch stream at the checkpoint's step;
+    <output_path>/model.ckpt, written by either package: its weights, BN
+    statistics, Adam moments, update counts and step, under the command
+    line's config; the run continues the Loader's batch stream at the
+    checkpoint's step;
+  * --model dcgan|vgg and --image_width 64|128 pick one of the four
+    backbones (`models/registry.py`);
   * per epoch, --epoch_size train steps (the joint and, unless --no_ft, the
     two finetune passes each); the reference's epoch metric, Σ over the
     epoch of mse_latent/T + (ft_mse_latent + ft_gp_nll)/T, accumulates on
@@ -115,7 +119,9 @@ def main(argv=None) -> int:
     # ---- state: seeded, or resumed from either package's TrainState ------
     ckpt_path = os.path.join(cfg.output_path, CKPT_NAME)
     if args.resume and os.path.exists(ckpt_path):
-        _, state = load_train_state(ckpt_path, device=dev)
+        # the file's leaves under this run's config (its lr, beta1, GP
+        # schedule and updates per batch), as dvg_tpu's CLI resumes
+        _, state = load_train_state(ckpt_path, cfg, device=dev)
         print(f"resumed from {ckpt_path}")
     else:
         state = init_train_state(cfg, device=dev)

@@ -11,6 +11,11 @@ Layout maps (the JAX package keeps NHWC activations and HWIO kernels):
   LSTMCell        (·, 4H) → (4H, ·)       w.T, gate order i, f, g, o in both
   BatchNorm       scale/bias/mean/var → weight/bias/running_mean/running_var
   GP, likelihood  same shapes and names
+The backbones' trees map by name, whichever of the four it is: DCGAN's
+`stages.{i}`, VGG's `groups.{i}.{j}`, each encoder's and decoder's `head`
+and the decoder's bare `final` conv. The decoder's head, DCGAN's decoder
+stages and both finals are transposed convs; VGG's decoder groups are
+plain convs (`TRANSPOSED`).
 Leaves may be numpy arrays or anything `np.asarray` takes. Values are f32,
 or f64 where they come in as f64 (the f64 parity tests). Every map is an
 exact permutation or flip, so a round trip is bit-exact.
@@ -43,6 +48,11 @@ def conv_transpose_weight(w) -> torch.Tensor:
     return _t(np.asarray(w)[::-1, ::-1].transpose(2, 3, 0, 1))
 
 
+# the encoder's and decoder's parts whose convs are transposed; the rest
+# (every encoder conv, VGG's decoder groups) are Conv2d
+TRANSPOSED = {("decoder", "head"), ("decoder", "stages"), ("decoder", "final")}
+
+
 def _block(out: Dict, prefix: str, p: Dict, s: Dict, conv) -> None:
     out[f"{prefix}.conv.weight"] = conv(p["conv"]["w"])
     out[f"{prefix}.conv.bias"] = _t(p["conv"]["b"])
@@ -53,27 +63,56 @@ def _block(out: Dict, prefix: str, p: Dict, s: Dict, conv) -> None:
     out[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0)
 
 
+def _convs(tree, path: Tuple = ()):
+    """(path, node) of every conv+BN block ({conv, bn}) and bare conv ({w,
+    b}) of a backbone's params tree; lists index by position."""
+    if isinstance(tree, dict) and ("conv" in tree or "w" in tree):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _convs(v, path + (k,))
+    else:
+        for i, v in enumerate(tree):
+            yield from _convs(v, path + (i,))
+
+
+def _at(tree, path: Tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _check_backbone(params: Dict, cfg: DVGConfig) -> None:
+    """The tree is the backbone cfg names: its stages (DCGAN) or groups
+    (VGG), one per skip."""
+    parts = "groups" if cfg.model == "vgg" else "stages"
+    want = 4 if cfg.image_width == 64 else 5
+    enc = params["encoder"]
+    if parts not in enc or len(enc[parts]) != want:
+        have = {k: len(v) for k, v in enc.items() if isinstance(v, list)}
+        raise ValueError(
+            f"the weights' encoder has {have}, but model={cfg.model!r} at "
+            f"image_width={cfg.image_width} has {want} {parts}")
+
+
 def params_from_jax(params: Dict, stats: Dict, cfg: DVGConfig
                     ) -> Dict[str, torch.Tensor]:
-    """dvg_tpu `(params, stats)` of a DCGAN-64 `lstm` model → a state_dict
-    for `DVGModel(cfg)` (CPU tensors; `load_state_dict` moves them)."""
-    if cfg.model != "dcgan" or cfg.image_width != 64:
-        raise NotImplementedError(
-            "params_from_jax: only DCGAN-64 is ported (ROADMAP queue 1 "
-            "item 13)")
+    """dvg_tpu `(params, stats)` of an `lstm` model with any of the four
+    backbones → a state_dict for `DVGModel(cfg)` (CPU tensors;
+    `load_state_dict` moves them). The backbone's tree maps by name:
+    `stages.{i}` (DCGAN), `groups.{i}.{j}` (VGG), `head`, `final`."""
+    _check_backbone(params, cfg)
     out: Dict[str, torch.Tensor] = {}
-    enc_p, enc_s = params["encoder"], stats["encoder"]
-    for i, (p, s) in enumerate(zip(enc_p["stages"], enc_s["stages"])):
-        _block(out, f"encoder.stages.{i}", p, s, conv_weight)
-    _block(out, "encoder.head", enc_p["head"], enc_s["head"], conv_weight)
-
-    dec_p, dec_s = params["decoder"], stats["decoder"]
-    _block(out, "decoder.head", dec_p["head"], dec_s["head"],
-           conv_transpose_weight)
-    for i, (p, s) in enumerate(zip(dec_p["stages"], dec_s["stages"])):
-        _block(out, f"decoder.stages.{i}", p, s, conv_transpose_weight)
-    out["decoder.final.weight"] = conv_transpose_weight(dec_p["final"]["w"])
-    out["decoder.final.bias"] = _t(dec_p["final"]["b"])
+    for part in ("encoder", "decoder"):
+        for path, p in _convs(params[part]):
+            prefix = ".".join(map(str, (part,) + path))
+            conv = (conv_transpose_weight if (part, path[0]) in TRANSPOSED
+                    else conv_weight)
+            if "conv" in p:
+                _block(out, prefix, p, _at(stats[part], path), conv)
+            else:
+                out[f"{prefix}.weight"] = conv(p["w"])
+                out[f"{prefix}.bias"] = _t(p["b"])
 
     fp = params["frame_predictor"]
     for name in ("embed", "output"):
@@ -119,26 +158,56 @@ def conv_transpose_weight_to_jax(w: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(_np(w).transpose(2, 3, 0, 1)[::-1, ::-1])
 
 
+def _lists(tree):
+    """Maps keyed exactly "0".."n−1" → lists, recursively."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _lists(v) for k, v in tree.items()}
+    if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _backbone_to_jax(sd: Dict[str, torch.Tensor], part: str
+                     ) -> Tuple[Dict, Dict]:
+    """The `part` ("encoder" or "decoder") entries of a state_dict → its
+    (params, stats) trees in the JAX layout: nested by the names' dotted
+    paths, numbered levels as lists."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree: Dict, path, value) -> None:
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = value
+
+    for key in sd:
+        if not key.startswith(f"{part}.") or not key.endswith(".weight"):
+            continue
+        path = key[:-len(".weight")].split(".")[1:]
+        if path[-1] == "bn":
+            continue
+        transposed = (part, path[0]) in TRANSPOSED
+        conv = conv_transpose_weight_to_jax if transposed else \
+            conv_weight_to_jax
+        if path[-1] == "conv":                     # a conv+BN block
+            p, s = _block_to_jax(sd, ".".join([part] + path[:-1]), conv)
+            put(params, path[:-1], p)
+            put(stats, path[:-1], s)
+        else:                                       # a bare conv (final)
+            put(params, path, {"b": _np(sd[f"{part}.{'.'.join(path)}.bias"]),
+                               "w": conv(sd[key])})
+    return _lists(params), _lists(stats)
+
+
 def params_to_jax(sd: Dict[str, torch.Tensor], cfg: DVGConfig
                   ) -> Tuple[Dict, Dict]:
-    """A `DVGModel` state_dict → dvg_tpu `(params, stats)` of a DCGAN-64
-    `lstm` model: nested dicts and lists of f32 numpy arrays, the inverse
-    of `params_from_jax`."""
-    if cfg.model != "dcgan" or cfg.image_width != 64:
-        raise NotImplementedError(
-            "params_to_jax: only DCGAN-64 is ported (ROADMAP queue 1 "
-            "item 13)")
-
-    def stages(prefix: str, conv):
-        n = len({k.split(".")[2] for k in sd if k.startswith(prefix)})
-        pairs = [_block_to_jax(sd, f"{prefix}.{i}", conv) for i in range(n)]
-        return [p for p, _ in pairs], [s for _, s in pairs]
-
-    enc_p, enc_s = stages("encoder.stages", conv_weight_to_jax)
-    head_p, head_s = _block_to_jax(sd, "encoder.head", conv_weight_to_jax)
-    dec_p, dec_s = stages("decoder.stages", conv_transpose_weight_to_jax)
-    dhead_p, dhead_s = _block_to_jax(sd, "decoder.head",
-                                     conv_transpose_weight_to_jax)
+    """A `DVGModel` state_dict → dvg_tpu `(params, stats)` of an `lstm`
+    model: nested dicts and lists of f32 numpy arrays, the inverse of
+    `params_from_jax`."""
+    enc_p, enc_s = _backbone_to_jax(sd, "encoder")
+    dec_p, dec_s = _backbone_to_jax(sd, "decoder")
+    _check_backbone({"encoder": enc_p}, cfg)
     n_cells = len({k.split(".")[2] for k in sd
                    if k.startswith("frame_predictor.cells.")})
 
@@ -156,16 +225,12 @@ def params_to_jax(sd: Dict[str, torch.Tensor], cfg: DVGConfig
                             "w_hh": linear_w(f"{c}.weight_hh"),
                             "w_ih": linear_w(f"{c}.weight_ih")})
     params = {
-        "decoder": {"final": {"b": _np(sd["decoder.final.bias"]),
-                              "w": conv_transpose_weight_to_jax(
-                                  sd["decoder.final.weight"])},
-                    "head": dhead_p, "stages": dec_p},
-        "encoder": {"head": head_p, "stages": enc_p},
+        "decoder": dec_p,
+        "encoder": enc_p,
         "frame_predictor": fp,
         "gp": {k[len("gp."):]: _np(v) for k, v in sd.items()
                if k.startswith("gp.")},
         "likelihood": {"raw_noise": _np(sd["likelihood.raw_noise"])},
     }
-    stats = {"decoder": {"head": dhead_s, "stages": dec_s},
-             "encoder": {"head": head_s, "stages": enc_s}}
+    stats = {"decoder": dec_s, "encoder": enc_s}
     return params, stats

@@ -1,1 +1,2 @@
-"""Model pieces of the port: layers, DCGAN-64, the LSTM predictor, the SVGP."""
+"""Model pieces of the port: layers, the DCGAN and VGG backbones at 64 and
+128 px and their registry, the LSTM predictor, the SVGP."""

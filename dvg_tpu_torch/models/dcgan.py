@@ -1,24 +1,27 @@
-"""DCGAN-64 encoder and decoder (counterpart of `dvg_tpu/models/dcgan.py`,
-64 px only).
+"""DCGAN-64 and DCGAN-128 encoder and decoder (counterpart of
+`dvg_tpu/models/dcgan.py`).
 
-  * encoder: four stride-2 4×4 conv+BN+LeakyReLU(0.2) stages halving the
-    resolution, then a 4×4 valid conv+BN+tanh head (4×4 → 1×1 → g_dim);
-    the stage outputs are the U-Net skips.
+  * encoder: four (64 px) or five (128 px) stride-2 4×4
+    conv+BN+LeakyReLU(0.2) stages halving the resolution, then a 4×4 valid
+    conv+BN+tanh head (4×4 → 1×1 → g_dim); the stage outputs are the U-Net
+    skips.
   * decoder: a transposed-conv head 1×1 → 4×4, then stride-2 4×4 upconv
     stages each consuming cat([d, skip]), and a final transposed conv with
-    tanh.
+    tanh at 64 px and sigmoid at 128 px (the reference's quirk, kept on
+    purpose: dcgan_64.py:76, dcgan_128.py:81).
 
 Every function here takes and returns NHWC tensors; inside, the convs run
 on NCHW-shaped channels_last views of the same memory.
 
 Train mode (`Encoder.train_forward`, `Decoder.grouped`) normalizes by the
 batch statistics of each call of a leading call axis and returns them, in
-at least f32, for the running-statistics fold of `train/step.py`.
+at least f32, for the running-statistics fold of `train/step.py`, in the
+order of `bn_blocks()`.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -27,18 +30,43 @@ from torch import nn
 from dvg_tpu_torch.models import layers as L
 
 NF = 64
-ENCODER_CHANNELS = [(NF, NF * 2), (NF * 2, NF * 4), (NF * 4, NF * 8)]
-DECODER_CHANNELS = [(NF * 8 * 2, NF * 4), (NF * 4 * 2, NF * 2),
-                    (NF * 2 * 2, NF)]
+
+
+def stage_channels(image_width: int, nc: int) -> List[Tuple[int, int]]:
+    """The encoder stages' (in, out) channels (dcgan_64.py, dcgan_128.py)."""
+    if image_width == 64:
+        return [(nc, NF), (NF, NF * 2), (NF * 2, NF * 4), (NF * 4, NF * 8)]
+    if image_width == 128:
+        return [(nc, NF), (NF, NF * 2), (NF * 2, NF * 4), (NF * 4, NF * 8),
+                (NF * 8, NF * 8)]
+    raise ValueError(
+        f"dcgan backbone supports image_width 64|128, got {image_width}")
+
+
+def decoder_stage_channels(image_width: int) -> List[Tuple[int, int]]:
+    """The decoder stages' (in, out) channels, the input doubled by the skip
+    concat (upc2.. of dcgan_64.py:68-72, dcgan_128.py:64-72)."""
+    if image_width == 64:
+        return [(NF * 8 * 2, NF * 4), (NF * 4 * 2, NF * 2), (NF * 2 * 2, NF)]
+    if image_width == 128:
+        return [(NF * 8 * 2, NF * 8), (NF * 8 * 2, NF * 4),
+                (NF * 4 * 2, NF * 2), (NF * 2 * 2, NF)]
+    raise ValueError(
+        f"dcgan backbone supports image_width 64|128, got {image_width}")
+
+
+def final_activation(image_width: int) -> Callable[[torch.Tensor],
+                                                    torch.Tensor]:
+    return torch.tanh if image_width == 64 else torch.sigmoid
 
 
 class Encoder(nn.Module):
-    def __init__(self, dim: int, nc: int):
+    def __init__(self, dim: int, nc: int, image_width: int = 64):
         super().__init__()
-        chans = [(nc, NF)] + ENCODER_CHANNELS
+        chans = stage_channels(image_width, nc)
         self.stages = nn.ModuleList(L.conv_block(ci, co, 4, 2, 1)
                                     for ci, co in chans)
-        self.head = L.conv_block(NF * 8, dim, 4, 1, 0)
+        self.head = L.conv_block(chans[-1][1], dim, 4, 1, 0)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -71,6 +99,10 @@ class Encoder(nn.Module):
         h = torch.tanh(y)
         return h.reshape(h.shape[0], -1), skips, stats
 
+    def bn_blocks(self) -> List[L.ConvBlock]:
+        """The BN blocks in the order of `train_forward`'s statistics."""
+        return list(self.stages) + [self.head]
+
     def fold_(self) -> None:
         """Fold every eval-mode BN into its conv, in place."""
         self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
@@ -78,12 +110,14 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, dim: int, nc: int):
+    def __init__(self, dim: int, nc: int, image_width: int = 64):
         super().__init__()
         self.head = L.upconv_block(dim, NF * 8, 4, 1, 0)
-        self.stages = nn.ModuleList(L.upconv_block(ci, co, 4, 2, 1)
-                                    for ci, co in DECODER_CHANNELS)
+        self.stages = nn.ModuleList(
+            L.upconv_block(ci, co, 4, 2, 1)
+            for ci, co in decoder_stage_channels(image_width))
         self.final = nn.ConvTranspose2d(NF * 2, nc, 4, 2, 1)
+        self.final_act = final_activation(image_width)
 
     def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
                 ) -> torch.Tensor:
@@ -92,7 +126,11 @@ class Decoder(nn.Module):
         for stage, skip in zip(self.stages, reversed(skips)):
             d = L.leaky_relu(stage(torch.cat([d, L.nchw(skip)], dim=1)))
         out = self.final(torch.cat([d, L.nchw(skips[0])], dim=1))
-        return L.nhwc(torch.tanh(out))
+        return L.nhwc(self.final_act(out))
+
+    def bn_blocks(self) -> List[L.ConvBlock]:
+        """The BN blocks in the order of `grouped`'s statistics."""
+        return [self.head] + list(self.stages)
 
     def fold_(self) -> None:
         """Fold every eval-mode BN into its conv, in place (the final
@@ -140,7 +178,7 @@ class Decoder(nn.Module):
             d = L.leaky_relu(y)
             stats.append(st)
         y = split_conv_t(self.final, d, skips_u[0])
-        return L.nhwc(torch.tanh(y)).unflatten(0, (n, b)), stats
+        return L.nhwc(self.final_act(y)).unflatten(0, (n, b)), stats
 
     def _weights(self):
         """(weight, bias) of every stage after the head, then the final —
@@ -184,4 +222,5 @@ class Decoder(nn.Module):
             d = L.leaky_relu(y + L.nchw(pre) + b[:, None, None])
         w, b = weights[-1]
         y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
-        return L.nhwc(torch.tanh(y + L.nchw(skip_pre[-1]) + b[:, None, None]))
+        return L.nhwc(self.final_act(y + L.nchw(skip_pre[-1])
+                                     + b[:, None, None]))

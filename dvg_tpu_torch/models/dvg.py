@@ -1,12 +1,13 @@
-"""The assembled DVG model (counterpart of `dvg_tpu/models/dvg.py`): DCGAN-64
-encoder/decoder, the `lstm` latent predictor and the g_dim-task SVGP with
-its Gaussian likelihood, as one `nn.Module` whose state_dict is the port's
-checkpoint state (`convert.params_from_jax` builds one from the JAX
-package's pytrees).
+"""The assembled DVG model (counterpart of `dvg_tpu/models/dvg.py`): the
+encoder/decoder of the backbone that (cfg.model, cfg.image_width) selects
+in `models/registry.py` (DCGAN or VGG, 64 or 128 px), the `lstm` latent
+predictor and the g_dim-task SVGP with its Gaussian likelihood, as one
+`nn.Module` whose state_dict is the port's checkpoint state
+(`convert.params_from_jax` builds one from the JAX package's pytrees).
 
 Parameters are built with gradients on (torch's default): the train step
 (`train/step.py`) takes them through the train-mode pieces
-(`dcgan.Encoder.train_forward`, `dcgan.Decoder.grouped`,
+(`Encoder.train_forward`, `Decoder.grouped`,
 `LSTMPredictor.teacher_forced`, `gp.elbo`), and the entries below are the
 eval-mode ones, which BatchNorm runs with its running statistics. The
 rollouts call them under `torch.inference_mode()`, which records no graph.
@@ -21,9 +22,9 @@ import torch
 from torch import nn
 
 from dvg_tpu_torch.config import DVGConfig, resolve_device
-from dvg_tpu_torch.models import dcgan
 from dvg_tpu_torch.models import gp as gp_mod
 from dvg_tpu_torch.models import layers as L
+from dvg_tpu_torch.models.registry import get_backbone
 from dvg_tpu_torch.models.rnn import Hidden, LSTMPredictor
 
 
@@ -34,18 +35,11 @@ class DVGModel(nn.Module):
         identical weights."""
         super().__init__()
         dev = resolve_device(device)
-        if cfg.model != "dcgan":
-            raise NotImplementedError(
-                f"model={cfg.model!r}: only the DCGAN backbone is ported; "
-                "VGG is ROADMAP queue 1 item 13")
-        if cfg.image_width != 64:
-            raise NotImplementedError(
-                f"image_width={cfg.image_width}: only 64 px is ported; "
-                "DCGAN-128 is ROADMAP queue 1 item 13")
+        backbone = get_backbone(cfg.model, cfg.image_width)
         self.cfg = cfg
         with torch.device("meta"):          # no work for torch's own init
-            self.encoder = dcgan.Encoder(cfg.g_dim, cfg.channels)
-            self.decoder = dcgan.Decoder(cfg.g_dim, cfg.channels)
+            self.encoder = backbone.encoder(cfg.g_dim, cfg.channels)
+            self.decoder = backbone.decoder(cfg.g_dim, cfg.channels)
             self.frame_predictor = LSTMPredictor(
                 cfg.g_dim, cfg.g_dim, cfg.rnn_size, cfg.predictor_rnn_layers)
             self.gp = gp_mod.SVGP(cfg.g_dim, cfg.num_inducing_points)

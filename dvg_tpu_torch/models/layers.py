@@ -1,6 +1,7 @@
 """Layer pieces of the port: conv blocks with eval-mode and train-mode
-BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, BN folding and
-the init law.
+BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, the VGG
+backbone's 2×2 max-pool and nearest ×2 upsample, BN folding and the init
+law.
 
 Counterpart of `dvg_tpu/models/layers.py`. Weights are kept in torch's own
 layouts (Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw)); the JAX
@@ -51,6 +52,17 @@ def cast(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, NEGATIVE_SLOPE)
+
+
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max-pool, stride 2, VALID, on an NCHW-shaped tensor."""
+    return F.max_pool2d(x, 2, 2)
+
+
+def upsample_nearest2d(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour ×2 upsample of an NCHW-shaped tensor (keeps its
+    memory format)."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -125,7 +137,9 @@ class ConvBlock(nn.Module):
 
 def conv_block(in_ch: int, out_ch: int, k: int, stride: int,
                padding: int) -> ConvBlock:
-    """Conv2d(k, stride, padding) + BN (activation applied by the caller)."""
+    """Conv2d(k, stride, padding) + BN (activation applied by the caller).
+    k=4, s=2, p=1 halves the resolution (DCGAN's stages); k=3, s=1, p=1
+    keeps it (VGG's groups); k=4, s=1, p=0 maps 4×4 → 1×1 (the heads)."""
     return ConvBlock(nn.Conv2d(in_ch, out_ch, k, stride, padding),
                      nn.BatchNorm2d(out_ch, eps=BN_EPS))
 

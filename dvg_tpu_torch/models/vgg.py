@@ -1,0 +1,228 @@
+"""VGG-64 and VGG-128 encoder and decoder (counterpart of
+`dvg_tpu/models/vgg.py`).
+
+  * encoder: per-resolution groups of 3×3 conv+BN+LeakyReLU(0.2) blocks
+    with a 2×2 max-pool between groups; a 4×4 valid conv+BN+tanh head
+    collapses the last pooled 4×4 map to the g_dim vector. The skips are
+    the PRE-pool group outputs, so skip 0 is at full resolution
+    (vgg_64.py:51-56).
+  * decoder: a transposed-conv head 1×1 → 4×4, then per group a nearest ×2
+    upsample and the group's blocks on cat([up, skip]) (vgg_64.py:97-105);
+    a final 3×3 same-size transposed conv and sigmoid.
+
+Module names mirror the JAX package's tree (`groups.{i}.{j}`, `head`,
+`final`), so `convert.py` maps one onto the other by name. Every function
+here takes and returns NHWC tensors; inside, the convs run on NCHW-shaped
+channels_last views of the same memory. Only each decoder group's FIRST
+conv reads the skip concat, so only that conv splits by linearity in the
+grouped train decode and the hoisted eval decode.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dvg_tpu_torch.models import layers as L
+
+
+def enc_groups(image_width: int, nc: int) -> List[List[int]]:
+    """Per-group channel chains [in, out, out, …] (vgg_64.py:21-44)."""
+    if image_width == 64:
+        return [[nc, 64, 64], [64, 128, 128], [128, 256, 256, 256],
+                [256, 512, 512, 512]]
+    if image_width == 128:
+        return [[nc, 64, 64], [64, 128, 128], [128, 256, 256, 256],
+                [256, 512, 512, 512], [512, 512, 512, 512]]
+    raise ValueError(
+        f"vgg backbone supports image_width 64|128, got {image_width}")
+
+
+def dec_groups(image_width: int) -> List[List[int]]:
+    """Decoder group chains, the first input doubled by the skip concat
+    (upc2.. of vgg_64.py:71-90, vgg_128.py:77-106)."""
+    if image_width == 64:
+        return [[512 * 2, 512, 512, 256], [256 * 2, 256, 256, 128],
+                [128 * 2, 128, 64], [64 * 2, 64]]
+    if image_width == 128:
+        return [[512 * 2, 512, 512, 512], [512 * 2, 512, 512, 256],
+                [256 * 2, 256, 256, 128], [128 * 2, 128, 64], [64 * 2, 64]]
+    raise ValueError(
+        f"vgg backbone supports image_width 64|128, got {image_width}")
+
+
+def _group(chain: List[int]) -> nn.ModuleList:
+    return nn.ModuleList(L.conv_block(ci, co, 3, 1, 1)
+                         for ci, co in zip(chain[:-1], chain[1:]))
+
+
+def _fold_groups(groups: nn.ModuleList) -> nn.ModuleList:
+    return nn.ModuleList(nn.ModuleList(L.fold_conv_bn(b) for b in g)
+                         for g in groups)
+
+
+def _blocks_eval(blocks, h: torch.Tensor) -> torch.Tensor:
+    for block in blocks:
+        h = L.leaky_relu(block(h))
+    return h
+
+
+def _blocks_train(blocks, h: torch.Tensor, calls: int, dtype,
+                  stats: List[L.BNStats]) -> torch.Tensor:
+    for block in blocks:
+        y, st = block.train_forward(h, calls, dtype)
+        h = L.leaky_relu(y)
+        stats.append(st)
+    return h
+
+
+class Encoder(nn.Module):
+    def __init__(self, dim: int, nc: int, image_width: int = 64):
+        super().__init__()
+        chains = enc_groups(image_width, nc)
+        self.groups = nn.ModuleList(_group(c) for c in chains)
+        self.head = L.conv_block(chains[-1][-1], dim, 4, 1, 0)
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x (B, H, W, C) → (h (B, dim), skips: per-group NHWC maps)."""
+        h = L.nchw(x)
+        skips = []
+        for i, group in enumerate(self.groups):
+            h = _blocks_eval(group, L.max_pool2d(h) if i else h)
+            skips.append(L.nhwc(h))
+        h = torch.tanh(self.head(L.max_pool2d(h)))
+        return h.reshape(h.shape[0], -1), skips
+
+    def train_forward(self, x: torch.Tensor, calls: int,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                 List[L.BNStats]]:
+        """Train-mode encode of x (calls·B, H, W, C), each of the `calls`
+        frames normalized by its own batch statistics, every weight cast to
+        `dtype` → (h (calls·B, dim), skips, per-block statistics (calls, C)
+        in the order of `bn_blocks()`)."""
+        h = L.nchw(L.cast(x, dtype))
+        skips, stats = [], []
+        for i, group in enumerate(self.groups):
+            h = _blocks_train(group, L.max_pool2d(h) if i else h, calls,
+                              dtype, stats)
+            skips.append(L.nhwc(h))
+        y, st = self.head.train_forward(L.max_pool2d(h), calls, dtype)
+        stats.append(st)
+        h = torch.tanh(y)
+        return h.reshape(h.shape[0], -1), skips, stats
+
+    def bn_blocks(self) -> List[L.ConvBlock]:
+        """Every group's blocks in order, then the head."""
+        return [b for g in self.groups for b in g] + [self.head]
+
+    def fold_(self) -> None:
+        """Fold every eval-mode BN into its conv, in place."""
+        self.groups = _fold_groups(self.groups)
+        self.head = L.fold_conv_bn(self.head)
+
+
+class Decoder(nn.Module):
+    def __init__(self, dim: int, nc: int, image_width: int = 64):
+        super().__init__()
+        self.head = L.upconv_block(dim, 512, 4, 1, 0)
+        self.groups = nn.ModuleList(_group(c) for c in dec_groups(image_width))
+        self.final = nn.ConvTranspose2d(64, nc, 3, 1, 1)
+
+    def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
+                ) -> torch.Tensor:
+        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc)."""
+        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        for group, skip in zip(self.groups, reversed(skips)):
+            d = _blocks_eval(group, torch.cat(
+                [L.upsample_nearest2d(d), L.nchw(skip)], dim=1))
+        return L.nhwc(torch.sigmoid(self.final(d)))
+
+    def bn_blocks(self) -> List[L.ConvBlock]:
+        """The head, then every group's blocks in order."""
+        return [self.head] + [b for g in self.groups for b in g]
+
+    def fold_(self) -> None:
+        """Fold every eval-mode BN into its conv, in place (the final
+        transposed conv has no BN)."""
+        self.head = L.fold_conv_bn(self.head)
+        self.groups = _fold_groups(self.groups)
+
+    def grouped(self, vecs: torch.Tensor, skips_u: List[torch.Tensor],
+                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None
+                ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+        """Train-mode decode of N latent calls whose skips come from a few
+        unique frames (`dvg_tpu`'s vgg.decoder_apply_grouped; the contract
+        of dcgan.Decoder.grouped): vecs (N, B, dim), skips_u per encoder
+        group (U, B, h, w, c), group_idx (N,) int64.
+
+        Each group's first conv splits by linearity over the concat,
+        conv(cat(u, s), W) = conv(u, W[:, :c_u]) + conv(s, W[:, c_u:]), so
+        its skip half runs once per unique frame and reaches the calls
+        through an index_select; the group's later convs see only the
+        previous block. Each call's BN uses its own batch statistics. →
+        (frames (N, B, H, W, nc), per-call statistics (N, C) in the order
+        of `bn_blocks()`)."""
+        n, b = vecs.shape[0], vecs.shape[1]
+        d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
+        y, st = self.head.train_forward(d, n, dtype)
+        d = L.leaky_relu(y)
+        stats = [st]
+        for group, sk in zip(self.groups, reversed(skips_u)):
+            up = L.upsample_nearest2d(d)
+            first = group[0]
+            w = L.cast(first.conv.weight, dtype)
+            c_u = up.shape[1]
+            s_out = L.nhwc(F.conv2d(L.nchw(L.cast(sk, dtype).flatten(0, 1)),
+                                    w[:, c_u:], None, 1, 1))
+            s_b = s_out.unflatten(0, sk.shape[:2]).index_select(0, group_idx)
+            y = (F.conv2d(up, w[:, :c_u], None, 1, 1)
+                 + L.nchw(s_b.flatten(0, 1))
+                 + L.cast(first.conv.bias, dtype)[:, None, None])
+            y, st = L.batch_norm_train(y, L.cast(first.bn.weight, dtype),
+                                       L.cast(first.bn.bias, dtype), n)
+            d = L.leaky_relu(y)
+            stats.append(st)
+            d = _blocks_train(group[1:], d, n, dtype, stats)
+        y = L.conv_apply(self.final, d, dtype)
+        return L.nhwc(torch.sigmoid(y)).unflatten(0, (n, b)), stats
+
+    def skip_pre(self, skips: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The skip half of every group's first conv for a FROZEN skip set,
+        computed once instead of at every step (input channels are dim 1
+        of a Conv2d weight). Entries follow the groups; each keeps the
+        skips' batch."""
+        outs = []
+        for group, skip in zip(self.groups, reversed(skips)):
+            w = group[0].conv.weight
+            c_s = skip.shape[-1]
+            outs.append(L.nhwc(F.conv2d(L.nchw(skip), w[:, w.shape[1] - c_s:],
+                                        None, 1, 1)))
+        return outs
+
+    def hoisted(self, vec: torch.Tensor, skip_pre: List[torch.Tensor]
+                ) -> torch.Tensor:
+        """Eval decode against `skip_pre`'s precomputed halves, with the
+        contract of dcgan.Decoder.hoisted: a BN-folded decoder, each pre at
+        vec's batch; in bf16 each half rounds before the sum."""
+        if self.head.bn is not None:
+            raise ValueError(
+                "decoder hoisted decode requires BN-folded params — call "
+                "model.fold_inference_params() first")
+        if skip_pre[0].shape[0] != vec.shape[0]:
+            raise ValueError(
+                f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
+                f"latent batch {vec.shape[0]}; tile the pre to the latent "
+                "batch once, outside the loop")
+        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        for group, pre in zip(self.groups, skip_pre):
+            up = L.upsample_nearest2d(d)
+            conv = group[0].conv
+            y = F.conv2d(up, conv.weight[:, :up.shape[1]], None, 1, 1)
+            d = _blocks_eval(group[1:], L.leaky_relu(
+                y + L.nchw(pre) + conv.bias[:, None, None]))
+        return L.nhwc(torch.sigmoid(self.final(d)))

@@ -90,19 +90,10 @@ def fold_stats(blocks: Sequence[L.ConvBlock], per_call: Sequence[L.BNStats],
                weights: torch.Tensor, decay: float) -> None:
     """r ← decay·r + Σ_k weights[k]·s_k for the mean and the unbiased
     variance of every block's BN, in place."""
-    for block, (mean, var) in zip(blocks, per_call):
+    for block, (mean, var) in zip(blocks, per_call, strict=True):
         w = weights.to(mean.dtype)
         block.bn.running_mean.mul_(decay).add_(w @ mean)
         block.bn.running_var.mul_(decay).add_(w @ var)
-
-
-def encoder_blocks(model: DVGModel) -> List[L.ConvBlock]:
-    """The encoder's BN blocks in the order of its statistics."""
-    return list(model.encoder.stages) + [model.encoder.head]
-
-
-def decoder_blocks(model: DVGModel) -> List[L.ConvBlock]:
-    return [model.decoder.head] + list(model.decoder.stages)
 
 
 # ---------------------------------------------------------------------------
@@ -305,14 +296,14 @@ def make_train_step(cfg: DVGConfig) -> Callable[
         if key not in plans:
             plans[key] = make_plan(cfg, x.shape[0], x.device)
         plan = plans[key]
-        enc_blocks = encoder_blocks(model)
+        enc_blocks = model.encoder.bn_blocks()
 
         # ---- pass 1: joint ------------------------------------------------
         opts.zero_grad()
         loss, metrics, enc_stats, dec_stats = joint_loss(model, x, cfg, plan)
         loss.backward()
         fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
-        fold_stats(decoder_blocks(model), dec_stats, plan.dec_w,
+        fold_stats(model.decoder.bn_blocks(), dec_stats, plan.dec_w,
                    plan.dec_decay)
         for g in MODULE_GROUPS:
             opts.step(g)

@@ -183,9 +183,16 @@ def test_hoisted_matches_fused(models):
 
 
 def test_unported_backbones_raise():
-    for kw in (dict(model="vgg"), dict(image_width=128)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    """Every backbone the JAX registry has is ported; a model or width
+    that neither package has raises the JAX registry's ValueError, with
+    the same message, from the port's registry."""
+    for kw in (dict(model="resnet"), dict(image_width=32),
+               dict(image_width=256)):
+        with pytest.raises(ValueError) as want:
+            JaxModel(JaxConfig(**dict(TINY, **kw)))
+        with pytest.raises(ValueError) as got:
             DVGModel(DVGConfig(**dict(TINY, **kw)), device="cpu")
+        assert str(got.value) == str(want.value), kw
 
 
 def test_config_round_trips_between_packages():

@@ -62,13 +62,13 @@ def unit_gain(path, a):
     return a.at[:, :, :a.shape[2] // 2].multiply(2.0)
 
 
-def jax_state(jmodel, seed):
-    """Init at unit gain, then non-trivial BN statistics and a
-    well-conditioned, trained-looking GP (spread inducing points, see
-    test_torch_gp_lstm)."""
+def jax_state(jmodel, seed, gain=unit_gain):
+    """Init at unit gain (`gain` maps each (path, leaf) of the params),
+    then non-trivial BN statistics and a well-conditioned, trained-looking
+    GP (spread inducing points, see test_torch_gp_lstm)."""
     rng = np.random.RandomState(seed)
     params, stats = jmodel.init(jax.random.PRNGKey(seed))
-    params = jax.tree_util.tree_map_with_path(unit_gain, params)
+    params = jax.tree_util.tree_map_with_path(gain, params)
 
     def bn_stats(path, a):
         if jax.tree_util.keystr(path).endswith("['var']"):
@@ -272,14 +272,17 @@ def test_bf16_drift_within_band(models):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model="vgg"), "item 13"),
-    (dict(image_width=128), "item 13"),
+    (dict(model="resnet"), "model must be 'dcgan' or 'vgg'"),
+    (dict(image_width=96), "image_width must be 64 or 128"),
 ])
 def test_unported_paths_raise(runs, kw, match):
-    """What is still to port raises, naming its ROADMAP item; a metric the
-    package does not have raises too."""
+    """A backbone neither package has raises ValueError from the port's
+    registry, as from `dvg_tpu`'s; a metric the package does not have
+    raises too."""
     cfg, port, *_ = runs
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
+        JaxModel(JaxConfig(**TINY).replace(**kw))
+    with pytest.raises(ValueError, match=match):
         DVGModel(cfg.replace(**kw), device="cpu")
     with pytest.raises(ValueError, match="eval_metric"):
         make_rollout_fns(port, cfg.replace(eval_metric="fid"))
@@ -307,6 +310,7 @@ def test_package_imports_no_jax_and_nothing_of_dvg_tpu():
         from dvg_tpu_torch.config import DVGConfig
         from dvg_tpu_torch.generate.rollout import make_rollout_fns
         from dvg_tpu_torch.models.dvg import DVGModel
+        import dvg_tpu_torch.models.vgg, dvg_tpu_torch.models.registry
         from dvg_tpu_torch.checkpoint import load_model, save_checkpoint
         import dvg_tpu_torch.convert, dvg_tpu_torch.ops.ssim_cuda
         import dvg_tpu_torch._msgpack, dvg_tpu_torch.models.gp

@@ -381,14 +381,15 @@ def test_joint_loss_value_and_grads_f64(ref, port):
 
 
 def assert_state_close(state, params, stats, opt_states, grads=None,
-                       atol=ATOL):
+                       atol=ATOL, cfg=None):
     """The port's state against a dvg_tpu TrainState's params, stats and
     opt_states (numpy, JAX layouts). Noise biases: within
     lr·(max|g_port| + max|g_jax|)/eps, the most Adam's first update can
     move a parameter with such gradients in either package, when the
     step's gradients are given, else within one Adam step (lr); the
-    encoder's running means within the bias difference of their block."""
-    cfg = DVGConfig(**GEOM)
+    encoder's running means within the bias difference of their block.
+    `cfg` defaults to the module's tiny config."""
+    cfg = cfg or DVGConfig(**GEOM)
     want = params_from_jax(params, stats, cfg)
     got = state.model.state_dict()
     bias_err = {}

@@ -4,20 +4,31 @@ procedural Moving-MNIST digits: the files and epoch records a run writes;
 a checkpoint that `dvg_tpu` resumes from (its TrainState layout) and that
 the port's eval CLI scores; --resume continuing the same batch stream, so
 that 2 epochs + a resumed third equal 3 epochs in one run, bit for bit;
---trace_dir; the --mesh refusal; and no hidden device."""
+--trace_dir; the --mesh refusal; and no hidden device.
+
+--resume under changed settings: one TrainState resumed by each package's
+CLI with --lr and --no_ft changed from the file's. `dvg_tpu` builds its
+optimizers from the command line and takes only the file's leaves, so the
+resumed epoch's Adam rates, GP schedule and updates per batch are the
+command line's; the port's must be too."""
 
 import json
+import shutil
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from dvg_tpu.cli import train as j_train_cli
+from dvg_tpu.config import DVGConfig as JaxConfig
 from dvg_tpu.train import checkpoint as jckpt
+from dvg_tpu.train.optim import gp_lr_schedule as j_gp_lr_schedule
 from dvg_tpu.train.step import init_train_state as j_init_train_state
 from dvg_tpu_torch.checkpoint import load_checkpoint, load_train_state
 from dvg_tpu_torch.cli import generate as gen_cli
 from dvg_tpu_torch.cli import train as train_cli
+from dvg_tpu_torch.config import DVGConfig
 
 EPOCH_SIZE = 2
 
@@ -143,3 +154,80 @@ def test_no_hidden_device(tmp_path):
     args = args[:args.index("--device")]
     with pytest.raises(RuntimeError, match="cuda"):
         train_cli.main(args)
+
+
+# ---------------------------------------------------------------------------
+# --resume under the command line's settings
+# ---------------------------------------------------------------------------
+
+RESUME_LR = 0.001       # the file's runs at the default 0.002
+
+
+def noise_bias(name: str) -> bool:
+    """A conv bias feeding a train-mode BN: its gradient is rounding, so
+    Adam moves it by ±lr in either package (tests/test_torch_train.py)."""
+    return name.endswith("conv.bias") and not name.startswith(
+        "decoder.final")
+
+
+@pytest.fixture(scope="module")
+def changed_resume(tmp_path_factory):
+    """A TrainState the port's CLI wrote after one epoch (ft on, lr
+    0.002), resumed for a second epoch with --lr 0.001 --no_ft by the
+    port's CLI and by dvg_tpu's, each on its own copy of the file."""
+    base = tmp_path_factory.mktemp("f1_base")
+    assert train_cli.main(train_args(base, niter=1)) == 0
+    outs = {}
+    for name in ("port", "jax"):
+        out = tmp_path_factory.mktemp(f"f1_{name}")
+        shutil.copy(base / "model.ckpt", out / "model.ckpt")
+        args = train_args(out, "--resume", "--lr", str(RESUME_LR),
+                          "--no_ft", niter=2)
+        if name == "jax":     # dvg_tpu's CLI: no --device; one device
+            i = args.index("--device")
+            args = args[:i] + args[i + 2:] + ["--mesh", "1"]
+            assert j_train_cli.main(args) == 0
+        else:
+            assert train_cli.main(args) == 0
+        outs[name] = out
+    return base, outs
+
+
+def test_resume_takes_the_command_lines_optimizer_settings(changed_resume):
+    """After the resumed epoch both packages hold the same update counts
+    (the GP group's one per batch without the finetune passes), the same
+    next GP rate, and parameters that moved alike: per tensor, the port's
+    distance from dvg_tpu's is under 5% of how far dvg_tpu's moved in the
+    epoch (the file's lr 0.002 and GP schedule at two updates per batch
+    put it at 100% and more), the BN-fed conv biases, moved by rounding,
+    excepted."""
+    base, outs = changed_resume
+    cfg = DVGConfig.from_dict(
+        load_checkpoint(str(outs["port"]))[0].to_dict()).replace(
+        lr=RESUME_LR, ft=False)
+    _, port = load_train_state(str(outs["port"]), cfg, device="cpu")
+    jcfg, jstate = jckpt.load_checkpoint(str(outs["jax"]))
+    assert port.step == int(jstate["step"]) == 2 * EPOCH_SIZE
+    want_counts = {"frame_predictor": 6, "encoder": 4, "decoder": 4,
+                   "gp_group": 6}
+    j_counts = {g: int(jstate["opt_states"][g]["0"]["count"])
+                for g in want_counts}
+    assert port.opts.counts == j_counts == want_counts
+    assert port.opts.updates_per_batch == 1
+    for g in ("frame_predictor", "encoder", "decoder"):
+        assert port.opts.adam[g].param_groups[0]["lr"] == RESUME_LR
+    j_rate = float(j_gp_lr_schedule(JaxConfig(**cfg.to_dict()))(
+        j_counts["gp_group"] // 1))
+    assert port.opts.schedule(port.opts.counts["gp_group"]) == j_rate
+
+    _, before, _ = load_checkpoint(str(base))
+    _, after_jax, payload = load_checkpoint(str(outs["jax"]))
+    after_port = port.model.state_dict()
+    assert after_jax.keys() == after_port.keys()
+    for k, p_jax in after_jax.items():
+        if "running" in k or "num_batches" in k or noise_bias(k):
+            continue
+        moved = (p_jax.double() - before[k].double()).norm()
+        apart = (after_port[k].double() - p_jax.double()).norm()
+        assert moved > 0, k
+        assert apart <= 0.05 * moved, (k, float(apart / moved))
