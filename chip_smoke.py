@@ -82,7 +82,22 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      (bf16, B 8, T 15, --remat) over 20 pipelined steps, and one profiled; (c) the training CLI at --model vgg
      --image_width 128 --remat --dtype bfloat16 for one short epoch, then
      the eval CLI on its checkpoint: K1 100 launches per batch at 128 px,
-     C 1, and K2 scoring the re-roll.
+     C 1, and K2 scoring the re-roll;
+ 13. [import] the reference user's path: (a) per backbone at a tiny width
+     (g_dim 16, B 2, n_eval 12), a reference-schema model.pth written
+     from seeded unit-gain weights, imported by the port on the card, its
+     f32 posterior against the reference's posterior loop over the
+     modules unpickled from the same file, on the card (FRAME_ATOL); (b)
+     the same for DCGAN-64 at the bench's width (C 3, g_dim 90, rnn
+     256×2, 40 inducing points) at B 50, the import timed; (c) 100
+     synthetic BAIR trajectories of 30 frames written as softmotion-style
+     TFRecords, converted by `convert_bair` (timed), the tree decoded by
+     the numpy decoder and, where it can be built, the native one (frames/s
+     and max |Δ|; where it cannot, the reason); (d) the eval CLI in bf16
+     on the imported checkpoint and the converted data (S 100, B 50, n_past
+     2, n_eval 30, 2 batches): K1 28 launches per batch, the clips equal
+     to the written frames, the GIFs' best column re-scored by K2 against
+     the npz (CLI_TOL), no PIL or imageio, stage seconds and frames/s.
 Each phase prints its seconds. Then one JSON line describing every kernel
 of the port, and last the device line.
 
@@ -186,6 +201,23 @@ PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
 # a re-roll scored by K2 against the same future scored by K1 in the loop
 REROLL_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-4)
 FRAME_ATOL = 1e-4
+
+# [import]: reference-schema .pth files of each backbone at a tiny width
+# and of DCGAN-64 at the bench's (BAIR: C 3, n_past 2), the BAIR data
+IMPORT_TINY = dict(dataset="bair", channels=3, g_dim=16, rnn_size=64,
+                   num_inducing_points=8, n_past=2, n_future=10, n_eval=12,
+                   batch_size=2)
+IMPORT_BACKBONES = (("DCGAN-64", dict(model="dcgan", image_width=64)),
+                    ("DCGAN-128", dict(model="dcgan", image_width=128)),
+                    ("VGG-64", dict(model="vgg", image_width=64)),
+                    ("VGG-128", dict(model="vgg", image_width=128)))
+IMPORT_FULL = dict(dataset="bair", channels=3, image_width=64, g_dim=90,
+                   rnn_size=256, predictor_rnn_layers=2,
+                   num_inducing_points=40, n_past=2, n_future=10, n_eval=30,
+                   batch_size=50)
+BAIR_TRAJ, BAIR_FRAMES, BAIR_PER_FILE = 100, 30, 4
+# native against numpy decoder (tests/test_torch_data.py measured 2/255)
+DECODER_ATOL = 2 / 255 + 1e-7
 
 
 class SmokeFailure(RuntimeError):
@@ -845,7 +877,8 @@ def phase_profile(fns, x):
     print_kernel_groups("[profile]", kernels, busy, KERNEL_GROUPS)
 
 
-def cli_run(ckpt_dir: str, data_root: str, logs, *flags):
+def cli_run(ckpt_dir: str, data_root: str, logs, *flags,
+            dataset: str = "smmnist"):
     """One in-process run of the eval CLI on the card; every kernel's count
     set to 0 just before and read just after. → (wall s, K1 launches of
     each diverse_metrics call, the clips it scored, the best-column frames
@@ -882,7 +915,7 @@ def cli_run(ckpt_dir: str, data_root: str, logs, *flags):
         ssim_psnr_batch_images.launches = 0
         t0 = time.perf_counter()
         rc = gen_cli.main(["--model_dir", ckpt_dir, "--log_dir", str(logs),
-                           "--dataset", "smmnist", "--data_root", data_root,
+                           "--dataset", dataset, "--data_root", data_root,
                            "--num_batches", str(CLI_BATCHES), *flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1843,6 +1876,307 @@ def phase_backbones_cli(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [import]: a reference model.pth, BAIR TFRecords, the eval CLI (phase 13)
+# ---------------------------------------------------------------------------
+
+def write_reference_pth(cfg, path: str, seed: int) -> str:
+    """A reference-schema model.pth (reference train.py:380-388) of cfg's
+    backbone: reference-architecture modules built on the CPU from a
+    seeded unit-gain port model with a trained-looking GP, written by the
+    port's writer with an `opt` namespace of cfg's fields (the reference's
+    has no num_inducing_points)."""
+    import argparse
+    from dvg_tpu_torch.convert import params_to_jax
+    from dvg_tpu_torch.train import import_torch as IT
+    model = with_trained_gp(unit_gain_model(cfg, "cpu"), seed=seed)
+    params, stats = params_to_jax(model.state_dict(), cfg)
+    enc, dec, fp = IT.reference_modules(params, stats, cfg)
+    gp_sd, lik_sd = IT.gp_state_dicts_j2t(params["gp"], params["likelihood"])
+    opt = argparse.Namespace(**{k: v for k, v in cfg.to_dict().items()
+                                if k != "num_inducing_points"})
+    IT.save_reference_style_checkpoint(path, enc, dec, fp, gp_sd, lik_sd, opt)
+    return path
+
+
+def port_posterior(pth: str, out: str, x, dev):
+    """The port's import of `pth` built on `dev`, loaded there, and its f32
+    posterior of the clip x → (frames on the CPU, import seconds, the
+    imported checkpoint's path)."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.train.import_torch import import_checkpoint
+    t0 = time.perf_counter()
+    ckpt = import_checkpoint(pth, out, device=dev)
+    import_s = time.perf_counter() - t0
+    cfg, model = load_model(ckpt, device=dev)
+    frames = make_rollout_fns(model, cfg).posterior(x, device=dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return frames.cpu(), import_s, ckpt
+
+
+def reference_posterior(pth: str, x, dev):
+    """The reference's make_gifs posterior loop (reference
+    generate_frames.py:111-134) over the modules unpickled from `pth`, on
+    `dev` in NCHW plain torch, with the GP mean from the port's
+    models/gp.py (as tests/test_full_model_parity.py:161-205 runs it on the
+    CPU) → frames (T, B, H, W, C) on the CPU."""
+    import torch
+    from dvg_tpu_torch.models import gp as gp_mod
+    from dvg_tpu_torch.train import import_torch as IT
+    ck = IT.load_reference_checkpoint(pth)
+    enc, dec, fp = (ck[k].to(dev).eval()
+                    for k in ("encoder", "decoder", "frame_predictor"))
+    d, n_past = ck["opt"].g_dim, ck["opt"].n_past
+    gp_p, lik_p = IT.gp_state_dicts_t2j(ck["gp_layer"], ck["likelihood"], d)
+    svgp = gp_mod.SVGP(d, gp_p["z"].shape[1])
+    svgp.load_state_dict({k: torch.from_numpy(v) for k, v in gp_p.items()})
+    lik = gp_mod.GaussianLikelihood(d)
+    lik.load_state_dict({k: torch.from_numpy(v) for k, v in lik_p.items()})
+    cache = gp_mod.build_cache(svgp.to(dev), lik.to(dev))
+    x = torch.as_tensor(x, device=dev).permute(0, 1, 4, 2, 3)
+    fp.hidden = fp.init_hidden(x.shape[1])
+    gen, x_in, skip = [x[0]], x[0], None
+    with torch.no_grad():
+        for i in range(1, x.shape[0]):
+            h, skips = enc(x_in)
+            if i < n_past:
+                skip = skips
+                fp(h)
+                x_in = x[i]
+            else:
+                mean, _ = gp_mod.cached_mean_var(cache, fp(h).T[..., None])
+                x_in = dec([mean.T, skip])
+            gen.append(x_in)
+    return torch.stack(gen).permute(0, 1, 3, 4, 2).cpu()
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        low, n = n & 0x7F, n >> 7
+        out += bytes([low | (0x80 if n else 0)])
+        if not n:
+            return out
+
+
+def _pb(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def bair_example(aux1, main, actions, eef) -> bytes:
+    """One softmotion30_44k tf.train.Example: per frame t the raw 64×64×3
+    bytes of `{t}/image_aux1/encoded` and `{t}/image_main/encoded` (a
+    BytesList each), a 4-float `{t}/action` and a 3-float
+    `{t}/endeffector_pos` (packed FloatLists)."""
+    import numpy as np
+    entries = []
+    for t in range(len(aux1)):
+        for key, kind, raw in (
+                (f"{t}/image_aux1/encoded", 1, aux1[t].tobytes()),
+                (f"{t}/image_main/encoded", 1, main[t].tobytes()),
+                (f"{t}/action", 2, np.asarray(actions[t], "<f4").tobytes()),
+                (f"{t}/endeffector_pos", 2,
+                 np.asarray(eef[t], "<f4").tobytes())):
+            entries.append(_pb(1, _pb(1, key.encode())
+                               + _pb(2, _pb(kind, _pb(1, raw)))))
+    return _pb(1, b"".join(entries))
+
+
+def write_bair_tfrecords(root: Path, seed: int):
+    """BAIR_TRAJ trajectories of BAIR_FRAMES procedural 64×64 RGB frames (a
+    lit gradient, a bouncing disc, sensor noise) as softmotion-style
+    TFRecords, BAIR_PER_FILE records a file (zero CRCs: the reader skips
+    them) under root/test → the image_aux1 frames (N, T, 64, 64, 3)
+    uint8."""
+    import struct
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(BAIR_FRAMES)[:, None, None]
+    yy, xx = np.mgrid[0:64, 0:64]
+
+    def bounce(p0, v):
+        q = (p0 + v * t - 8) % 96
+        return 8 + np.where(q < 48, q, 96 - q)
+
+    frames = np.empty((BAIR_TRAJ, BAIR_FRAMES, 64, 64, 3), np.uint8)
+    for k in range(BAIR_TRAJ):
+        bg = rng.uniform(40, 200, 3) + rng.uniform(-1, 1, 3) * (
+            yy[..., None] - 32)
+        disc = ((yy - bounce(rng.uniform(8, 56), rng.uniform(-3, 3))) ** 2
+                + (xx - bounce(rng.uniform(8, 56), rng.uniform(-3, 3))) ** 2
+                < rng.uniform(5, 10) ** 2)
+        img = np.where(disc[..., None], rng.uniform(0, 255, 3), bg)
+        frames[k] = np.clip(img + rng.normal(0, 4, img.shape), 0, 255)
+    src = root / "test"
+    src.mkdir(parents=True)
+    for i in range(0, BAIR_TRAJ, BAIR_PER_FILE):
+        blob = b""
+        for k in range(i, min(i + BAIR_PER_FILE, BAIR_TRAJ)):
+            rec = bair_example(frames[k], frames[k][:, ::-1],
+                               rng.normal(size=(BAIR_FRAMES, 4)),
+                               rng.normal(size=(BAIR_FRAMES, 3)))
+            blob += struct.pack("<Q", len(rec)) + bytes(4) + rec + bytes(4)
+        (src / f"traj_{i:05d}_to_{i + BAIR_PER_FILE - 1:05d}.tfrecords"
+         ).write_bytes(blob)
+    return frames
+
+
+def phase_import(tmp: str):
+    """Phase 13 (module docstring)."""
+    import os
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.data import convert, frames as frames_mod
+    from dvg_tpu_torch.runtime import fastload
+    tmp = Path(tmp) / "import"
+    tmp.mkdir()
+    torch.backends.cudnn.benchmark = False
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # 1. tiny, each backbone: the port's import on the card against the
+    # unpickled reference modules on the card
+    for name, kw in IMPORT_BACKBONES:
+        cfg = DVGConfig(**dict(IMPORT_TINY, **kw))
+        w = cfg.image_width
+        pth = write_reference_pth(cfg, str(tmp / f"{name}.pth"), seed=2)
+        x = np.random.RandomState(1).rand(cfg.n_eval, cfg.batch_size, w, w,
+                                          3).astype(np.float32)
+        got, import_s, _ = port_posterior(pth, str(tmp / name), x, CARD)
+        ref = reference_posterior(pth, x, CARD)
+        err = frames_err(got, ref)
+        free = got[cfg.n_past:]
+        print(f"[import] tiny {name}: .pth {os.path.getsize(pth) / 1e6:.1f} "
+              f"MB imported on the card in {import_s:.2f} s; f32 posterior "
+              f"{tuple(got.shape)} vs the reference loop over the unpickled "
+              f"modules on the card: max|dframe| {err:.3e} (atol "
+              f"{FRAME_ATOL}); free frames' range {free.min():.3f}.."
+              f"{free.max():.3f}")
+        check(bool(torch.isfinite(got).all()), f"{name}: frames not finite")
+        check(err <= FRAME_ATOL, f"{name}: imported posterior vs the "
+              f"reference loop: {err}")
+        check(float(free.max() - free.min()) > 0.1,
+              f"{name}: the free frames are flat")
+
+    # 2. full width: DCGAN-64 at the bench geometry, C 3, B 50
+    cfg = DVGConfig(**IMPORT_FULL)
+    pth = write_reference_pth(cfg, str(tmp / "dcgan64_full.pth"), seed=3)
+    x = np.random.RandomState(2).rand(cfg.n_eval, cfg.batch_size, 64, 64,
+                                      3).astype(np.float32)
+    got, import_s, ckpt = port_posterior(pth, str(tmp / "full"), x, CARD)
+    ref = reference_posterior(pth, x, CARD)
+    err = frames_err(got, ref)
+    print(f"[import] full DCGAN-64 C 3 g_dim 90 rnn 256x2 M 40: .pth "
+          f"{os.path.getsize(pth) / 1e6:.1f} MB -> model.ckpt "
+          f"{os.path.getsize(ckpt) / 1e6:.1f} MB, import_checkpoint "
+          f"{import_s:.2f} s (host, TrainState built on the card); f32 "
+          f"posterior B {cfg.batch_size} n_eval {cfg.n_eval} vs the "
+          f"reference loop: max|dframe| {err:.3e} (atol {FRAME_ATOL})")
+    check(err <= FRAME_ATOL, f"full-width imported posterior: {err}")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    # 3. data: TFRecords -> convert_bair -> decode
+    raw, root = tmp / "softmotion30_44k", tmp / "bair"
+    t0 = time.perf_counter()
+    want = write_bair_tfrecords(raw, seed=4)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = convert.convert_bair(str(raw), str(root), split="test")
+    conv_s = time.perf_counter() - t0
+    ds = frames_mod.BAIR(train=False, data_root=str(root),
+                         seq_len=BAIR_FRAMES)
+    order = [int(Path(d).parent.name[len("traj_"):]) * BAIR_PER_FILE
+             + int(Path(d).name) for d in ds.dirs]
+    paths = [os.path.join(d, f"{t}.png") for d in ds.dirs
+             for t in range(BAIR_FRAMES)]
+    n_frames = len(paths)
+    records = list((raw / "test").iterdir())
+    print(f"[import] {n} trajectories x {BAIR_FRAMES} frames written as "
+          f"{len(records)} TFRecord files "
+          f"({sum(p.stat().st_size for p in records) / 1e6:.1f} MB) in "
+          f"{write_s:.2f} s; convert_bair {conv_s:.2f} s = "
+          f"{conv_s / n_frames * 1e3:.3f} ms/frame")
+    check(n == BAIR_TRAJ and len(ds.dirs) == BAIR_TRAJ and sorted(order)
+          == list(range(BAIR_TRAJ)), f"converted {n} trajectories, "
+          f"{len(ds.dirs)} dirs")
+    t0 = time.perf_counter()
+    numpy_dec = np.stack([frames_mod._read_png(p, 64, False) for p in paths])
+    numpy_s = time.perf_counter() - t0
+    exact = want[order].reshape(numpy_dec.shape).astype(np.float32) / 255.0
+    d_src = float(np.abs(numpy_dec - exact).max())
+    print(f"[import] numpy decoder: {n_frames / numpy_s:,.0f} frames/s "
+          f"(host, one thread); converted frames vs the written ones "
+          f"max|d| {d_src:.3e}")
+    check(d_src == 0.0, f"converted frames differ from the written: {d_src}")
+    if fastload.is_available():
+        t0 = time.perf_counter()
+        native_dec = fastload.decode_batch(paths, 64, 64, 3)
+        native_s = time.perf_counter() - t0
+        d_dec = float(np.abs(native_dec - numpy_dec).max())
+        print(f"[import] native decoder: {n_frames / native_s:,.0f} frames/s"
+              f" (host, {os.cpu_count()} threads); vs numpy max|d| "
+              f"{d_dec:.3e} (atol {DECODER_ATOL:.4f})")
+        check(d_dec <= DECODER_ATOL, f"native vs numpy decoder: {d_dec}")
+    else:
+        print(f"[import] native decoder cannot be built on this machine, "
+              f"comparison skipped: {fastload.status()}")
+    del numpy_dec, exact
+
+    # 4. the eval CLI on the imported checkpoint and the converted data
+    logs = tmp / "eval"
+    wall, per_call, clips, best, k2_cli, peak = cli_run(
+        str(Path(ckpt).parent), str(root), logs, "--dtype", "bfloat16",
+        "--override_n_eval", str(BAIR_FRAMES), "--override_batch_size",
+        str(cfg.batch_size), "--nsample", "100", dataset="bair")
+    n_free = BAIR_FRAMES - cfg.n_past
+    b = cfg.batch_size
+    d_clip = max(float((c.float().cpu() - torch.from_numpy(
+        want[order[i * b:(i + 1) * b]].transpose(1, 0, 2, 3, 4)
+        .astype(np.float32) / 255.0)).abs().max())
+        for i, c in enumerate(clips))
+    worst, k2 = rescore_best(logs, clips, best, cfg.n_past, 100)
+    recs = read_records(logs)
+    times = [r for r in recs if r["kind"] == "time"]
+    loaded = [m for m in ("PIL", "imageio") if m in sys.modules]
+    tol = CLI_TOL["bfloat16"]
+    decoder = "native" if fastload.is_available() else "numpy"
+    print(f"[import] eval CLI bf16 on the imported checkpoint, --dataset "
+          f"bair from the converted tree ({decoder} decoder: "
+          f"{fastload.status()}), S 100 B "
+          f"{b} n_past {cfg.n_past} n_eval {BAIR_FRAMES}, {CARD_LINE}: "
+          f"{wall:.2f} s wall for {CLI_BATCHES} batches, K1 launches per "
+          f"batch {per_call}, peak {peak:.2f} GiB; its clips vs the written "
+          f"frames max|d| {d_clip:.3e}")
+    for r in times:
+        print(f"[import] batch {r['step']} s: assembly {r['batch_s']:.4f}  "
+              f"posterior {r['posterior_s']:.3f}  diverse_metrics "
+              f"{r['metrics_s']:.3f} ({100 * n_free * b / r['metrics_s']:,.0f}"
+              f" frames/s)  re-roll {r['reroll_s']:.3f}  10 GIFs "
+              f"{r['gifs_s']:.3f}")
+    print(f"[import] best-SSIM column of its {len(best)} GIFs re-scored by "
+          f"K2 ({k2} launches) vs the npz: max|dssim| {worst[0]:.3e}  "
+          f"max|dpsnr| {worst[1]:.3e} dB  (tol {tol}); PIL/imageio "
+          f"imported: {loaded or 'none'}")
+    check(per_call == [n_free] * CLI_BATCHES,
+          f"K1 launches per batch {per_call}, want {n_free}")
+    check(d_clip <= DECODER_ATOL, f"the CLI's clips differ from the "
+          f"written frames: {d_clip}")
+    check(k2_cli == 0 and k2 == len(best) == 10 * CLI_BATCHES,
+          f"K2 launches: {k2_cli} in the CLI, {k2} re-scoring {len(best)}")
+    check(worst[0] <= tol["ssim_atol"] and worst[1] <= tol["psnr_atol"],
+          f"the GIF's best column is not the scored future: {worst}")
+    check(not loaded, f"the import phase imported {loaded}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1886,6 +2220,7 @@ def main() -> int:
             full = timed("backbones full", phase_backbones_full, tmp)
             train_ms = timed("backbones train", phase_backbones_train)
             timed("backbones cli", phase_backbones_cli, tmp)
+            timed("import", phase_import, tmp)
         print(f"[backbones] {CARD_LINE}: " + "; ".join(
             f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
             f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"

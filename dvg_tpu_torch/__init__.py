@@ -16,8 +16,13 @@ plot_samples and gp_trigger) with both hand-written CUDA metric kernels
 metric routes (`ops/ssim.py`), the `dvg_tpu` checkpoint format
 (`checkpoint.py`), the datasets and loader (`data/`), the eval CLI
 (`python -m dvg_tpu_torch.cli.generate`) with its PNG/GIF writers, logging
-and profiling (`utils/`), none of which needs PIL or imageio, and
-single-device training (`train/`, `python -m dvg_tpu_torch.cli.train`).
+and profiling (`utils/`), none of which needs PIL or imageio,
+single-device training (`train/`, `python -m dvg_tpu_torch.cli.train`),
+the reference `.pth` importer (`train/import_torch.py`, `python -m
+dvg_tpu_torch.train.import_torch`), the dataset converters
+(`data/convert.py`: BAIR TFRecords, KTH/UCF videos, metadata) and the
+native frame decoder (`runtime/fastload.py`, libpng/libjpeg, built at
+first use where those are installed).
 """
 
 __version__ = "0.1.0"

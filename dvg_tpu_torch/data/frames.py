@@ -13,11 +13,16 @@ refusals), decoded without PIL.
     items are (seq, class_id). UCF falls back to the train split's metadata
     when the test split has none.
 
-`_read_png` gives what Pillow's `Image.open(path).convert("L"|"RGB")` and
-`resize((W, W), BILINEAR)` give, exactly: the port's PNG decoder
+Frames decode as in `dvg_tpu`: with the native decoder
+(`runtime/fastload`, libpng/libjpeg) when it is built, else with
+`_read_png`, which gives what Pillow's `Image.open(path).convert("L"|"RGB")`
+and `resize((W, W), BILINEAR)` give, exactly: the port's PNG decoder
 (`utils/_codecs.py`), Pillow's integer gray law and its resample
-(`moving_mnist.resize_u8`). All datasets return float32 (T, H, W, C) in
-[0, 1].
+(`moving_mnist.resize_u8`). The native decoder is within 2/255 of that law
+(libpng's gray weights, a float resize) and equals `dvg_tpu`'s bit for
+bit. The first sequence read prints which decoder runs. All datasets
+return float32 (T, H, W, C) in [0, 1]. The trees are written by
+`dvg_tpu_torch.data.convert`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from dvg_tpu_torch.data.moving_mnist import resize_u8
+from dvg_tpu_torch.runtime import fastload
 from dvg_tpu_torch.utils._codecs import decode_png
 
 KTH_CLASSES = ("boxing", "handclapping", "handwaving", "jogging",
@@ -69,8 +75,21 @@ def _read_png(path: str, width: int, gray: bool) -> np.ndarray:
     return img.astype(np.float32) / 255.0
 
 
+_announced = False
+
+
 def _read_sequence(paths, width: int, gray: bool) -> np.ndarray:
-    """A frame sequence → (T, W, W, C) float32 in [0, 1]."""
+    """A frame sequence → (T, W, W, C) float32 in [0, 1], by the native
+    decoder when it is built, else by `_read_png`."""
+    global _announced
+    native = fastload.is_available()
+    if not _announced:
+        _announced = True
+        print(f"[data] frame decoder: {'native' if native else 'numpy'} "
+              f"({fastload.status()})", flush=True)
+    if native:
+        return fastload.decode_batch(list(paths), width, width,
+                                     1 if gray else 3)
     return np.stack([_read_png(p, width, gray) for p in paths])
 
 
@@ -107,7 +126,8 @@ class BAIR:
         if not self.dirs:
             raise FileNotFoundError(
                 f"no BAIR trajectories under {self.root}; run "
-                "data/download_bair.sh + dvg_tpu.data.convert.convert_bair")
+                "data/download_bair.sh + dvg_tpu_torch.data.convert."
+                "convert_bair")
         if self.train:
             rng = np.random.default_rng((*self.seed, index))
             d = self.dirs[int(rng.integers(0, len(self.dirs)))]
@@ -210,7 +230,8 @@ class _MetaVideoDataset:
         if self.meta is None:
             raise FileNotFoundError(
                 f"metadata not found at {self._meta_path(self.train, 'json')}; "
-                "run dvg_tpu.data.convert.build_metadata after frame conversion")
+                "run dvg_tpu_torch.data.convert.build_metadata after frame "
+                "conversion")
         rng = np.random.default_rng((*self.seed, index))
         avail = self.classes
         # redraw (class, video, chunk) while the chunk is shorter than
@@ -223,7 +244,7 @@ class _MetaVideoDataset:
                 raise ValueError(
                     f"metadata record {rec.get('vid')!r} in class {cls!r} "
                     "has an empty 'files' list — rebuild the metadata for "
-                    "that video (dvg_tpu.data.convert.build_metadata)")
+                    "that video (dvg_tpu_torch.data.convert.build_metadata)")
             chunk = rec["files"][int(rng.integers(0, len(rec["files"])))]
             if len(chunk) >= self.seq_len:
                 break
@@ -233,7 +254,7 @@ class _MetaVideoDataset:
             raise ValueError(
                 f"metadata record {rec.get('vid')!r} in class {cls!r} "
                 "contains an empty frame chunk — rebuild the metadata for "
-                "that video (dvg_tpu.data.convert.build_metadata)")
+                "that video (dvg_tpu_torch.data.convert.build_metadata)")
         if len(chunk) < self.seq_len:
             start = 0
             chunk = list(chunk) + [chunk[-1]] * (self.seq_len - len(chunk))

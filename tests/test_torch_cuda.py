@@ -12,7 +12,10 @@ the tiny f32 slice card against CPU SSIM 1e-4, PSNR 1e-3 dB, MSE rtol 1e-4;
 gp_trigger card against CPU equal masks, frames atol 1e-4, values rtol
 1e-4; the tiny train step on the card (f64 and f32) against the CPU's f64
 step as chip_smoke.py's `phase_train_tiny` holds it; a TrainState written
-and read back on the card."""
+and read back on the card; a tiny reference-schema `.pth` imported and
+run (f32 posterior) on the card against the same file on the CPU and
+against the reference's loop over the unpickled modules, frames atol
+1e-4."""
 
 import numpy as np
 import pytest
@@ -300,3 +303,25 @@ def test_train_state_round_trip_on_card(cuda, tmp_path):
     _, metrics = step(loaded, x)
     assert loaded.step == 2
     assert all(torch.isfinite(v).item() for v in metrics.values())
+
+
+def test_reference_import_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke.py's tiny [import] step as a test: a DCGAN-64 `.pth` in
+    the reference's schema imported and run on the card equals the same
+    file imported and run on the CPU, and the reference's posterior loop
+    over its unpickled modules on the card."""
+    import chip_smoke
+    cfg = DVGConfig(**dict(chip_smoke.IMPORT_TINY, model="dcgan",
+                           image_width=64))
+    pth = chip_smoke.write_reference_pth(cfg, str(tmp_path / "model.pth"),
+                                         seed=2)
+    x = np.random.RandomState(1).rand(cfg.n_eval, cfg.batch_size, 64, 64,
+                                      3).astype(np.float32)
+    card, _, _ = chip_smoke.port_posterior(pth, str(tmp_path / "card"), x,
+                                           "cuda")
+    cpu, _, _ = chip_smoke.port_posterior(pth, str(tmp_path / "cpu"), x,
+                                          "cpu")
+    ref = chip_smoke.reference_posterior(pth, x, "cuda")
+    assert card.shape == x.shape and bool(torch.isfinite(card).all())
+    assert (card - cpu).abs().max() <= 1e-4
+    assert (card - ref).abs().max() <= 1e-4

@@ -3,9 +3,10 @@ Moving-MNIST datasets bit-equal (procedural glyphs and a tiny idx file,
 train and test splits), the device-assembled batch exact at two digits,
 the PIL-free bilinear resize equal to Pillow's, PNG frames decoded equal
 to the PIL path (gray, gray+alpha, RGB, RGBA, palette, every row filter, a
-resize), the BAIR/KTH/UCF items equal to `dvg_tpu`'s through its PIL path
-and within `DECODER_ATOL` of its native decoder, the Loader's batches equal
-for the same (seed, step), and the same refusals."""
+resize), the BAIR/KTH/UCF items equal to `dvg_tpu`'s through both
+packages' PIL-law paths and through both native decoders as built
+(`DECODER_ATOL`), the Loader's batches equal for the same (seed, step),
+and the same refusals."""
 
 import gzip
 import io
@@ -215,22 +216,30 @@ def test_read_png_equals_pil_path(tmp_path, gray):
 @pytest.fixture
 def pil_path(monkeypatch):
     """dvg_tpu's frame datasets decode through PIL, not its native
-    decoder."""
+    decoder, and the port's through its numpy decoder, not its copy of
+    that native decoder."""
     from dvg_tpu.runtime import fastload
+    from dvg_tpu_torch.runtime import fastload as port_fastload
     monkeypatch.setattr(fastload, "is_available", lambda: False)
+    monkeypatch.setattr(port_fastload, "is_available", lambda: False)
 
 
-# dvg_tpu decodes with its native libpng decoder when that is built, else
-# through PIL. The port equals the PIL path; the native one is within
-# 1/255 of it, except on a resized gray frame, where libpng's gray law and
-# a float resize take it 2.0/255 from the PIL path (measured on this tree).
-DECODER_ATOL = {"pil": 0.0, "as_built": 2 / 255 + 1e-7}
+# Each package decodes with its native libpng decoder when that is built,
+# else by the PIL law (dvg_tpu through PIL, the port in numpy). The two
+# native decoders are one source, and the two PIL-law paths agree exactly,
+# so either way the port gives dvg_tpu's frames exactly.
+DECODER_ATOL = {"pil": 0.0, "as_built": 0.0}
 
 
 @pytest.mark.parametrize("decoder", ["pil", "as_built"])
 def test_frame_datasets_match_dvg_tpu(tmp_path, request, decoder):
     if decoder == "pil":
         request.getfixturevalue("pil_path")
+    else:
+        from dvg_tpu.runtime import fastload
+        from dvg_tpu_torch.runtime import fastload as port_fastload
+        assert port_fastload.is_available() == fastload.is_available(), \
+            port_fastload.status()
     atol = DECODER_ATOL[decoder]
     rng = np.random.default_rng(4)
     bair_tree(str(tmp_path / "bair"), rng)
@@ -255,7 +264,7 @@ def test_frame_datasets_match_dvg_tpu(tmp_path, request, decoder):
 
 @pytest.mark.parametrize("shuffle", [False, True],
                          ids=["in_order", "shuffled"])
-def test_loader_batches_match_dvg_tpu(tmp_path, pil_path, shuffle):
+def test_loader_batches_match_dvg_tpu(tmp_path, shuffle):
     root = str(tmp_path)
     meta_tree(root, jframes.KTH_CLASSES, np.random.default_rng(5))
     kw = dict(train=True, data_root=root, seq_len=4)
