@@ -97,7 +97,30 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      on the imported checkpoint and the converted data (S 100, B 50, n_past
      2, n_eval 30, 2 batches): K1 28 launches per batch, the clips equal
      to the written frames, the GIFs' best column re-scored by K2 against
-     the npz (CLI_TOL), no PIL or imageio, stage seconds and frames/s.
+     the npz (CLI_TOL), no PIL or imageio, stage seconds and frames/s;
+ 14. [dist] the parallel layer (`dvg_tpu_torch.parallel`), its ranks
+     spawned as processes that join over the DVG_* env, each with its own
+     log, a failing rank failing the phase: (a) NCCL at world size 1: the
+     tiny f64 train step through the group path against the same step
+     without a group (metrics and gradients 1e-12, the post-step state at
+     phase 11a's 1e-9) and the ("sample", 1)-sharded tiny eval against
+     the plain call; (b) two ranks sharing the card over gloo with CUDA
+     tensors: the tiny f64 step, 2 × B 4 against one process on B 8
+     (1e-9); the main path's protocol (DCGAN-64 from the phase-4
+     checkpoint, whose bytes every rank reads from rank 0) sample-sharded,
+     S 50 per rank, B 50, in f32 against one process (SSIM 1e-5, PSNR 1e-3
+     dB, MSE rtol 1e-5) and in bf16 timed (ms per rank, frames/s of the
+     pair, peak per rank) with its drift from phase 7's run (CLI_TOL's bf16
+     band), K1 launched 100 times per rank with its count set to 0 just
+     before; (d) the training CLI --mesh 2 --dist_backend gloo at the
+     bench's geometry on smmnist in bf16, 2 epochs of 5 steps, then a
+     resumed third, each rank writing to its own directory (rank 1's stays
+     empty), then the eval CLI --mesh_samples 2 (1 batch) on rank 0's
+     checkpoint: K1 100 launches per rank, the GIFs' best column
+     re-scored by K2 against the npz; (c) four ranks over gloo: the
+     ("sample", 2) × ("data", 2) tiny eval against one process and the
+     full_cov guard. Two ranks sharing one card are no speedup: the times
+     show the gloo hops' cost.
 Each phase prints its seconds. Then one JSON line describing every kernel
 of the port, and last the device line.
 
@@ -218,6 +241,26 @@ IMPORT_FULL = dict(dataset="bair", channels=3, image_width=64, g_dim=90,
 BAIR_TRAJ, BAIR_FRAMES, BAIR_PER_FILE = 100, 30, 4
 # native against numpy decoder (tests/test_torch_data.py measured 2/255)
 DECODER_ATOL = 2 / 255 + 1e-7
+
+# [dist]: the parallel layer on one card (phase 14). The 2 × 2 tiny mesh's
+# eval (a fork at step 15, 4 futures, 2 rows); the f64 gates of phase 11a
+# for the 2-rank step and 1e-12 for the NCCL world-1 step against the same
+# step without a group; the sharded f32 evals against one process; the
+# bf16 sharded protocol's drift from one process held to CLI_TOL's bf16
+# band (different batch sizes take different cuDNN kernels in bf16: the
+# re-roll measured 2.4e-4 SSIM on DCGAN-64, PERF.md §6)
+DIST_TINY_EVAL = dict(BB_TINY, nsample=4, batch_size=2)
+DIST_TINY_SEED = 5
+DIST_F64_TOL = 1e-9
+DIST_NCCL_TOL = 1e-12
+DIST_F32_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-5)
+DIST_BF16_TOL = dict(CLI_TOL["bfloat16"], mse_rtol=float("inf"))
+# the --mesh 2 training CLI runs in bf16: each rank is a fresh process whose
+# cuDNN autotuner (cudnn.benchmark, on in the CLI) spent 44 s on the f32
+# step with TF32 off (NVIDIA H100 80GB HBM3, 700 W)
+DIST_EPOCH = 5            # steps per epoch of the --mesh 2 training CLI
+DIST_CLI_BATCHES = 1      # batches of the --mesh_samples 2 eval CLI
+DIST_TIMEOUT_S = 600
 
 
 class SmokeFailure(RuntimeError):
@@ -2177,6 +2220,404 @@ def phase_import(tmp: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# [dist]: the parallel layer on one card (phase 14)
+# ---------------------------------------------------------------------------
+
+def _metrics_list(m):
+    return [m[k] for k in METRICS]
+
+
+def _dist_rank(rank: int, n: int, port: int, tmp: str, job: str) -> None:
+    """One rank of phase 14: joins the group of `job` ("nccl1": NCCL, else
+    gloo) over the DVG_* env on the card, runs DIST_JOBS[job] and saves its
+    results to tmp/<job>_<rank>.pt. Its console goes to tmp/<job>_<rank>.log,
+    which the phase prints if the rank fails."""
+    import os
+    import traceback
+    log = open(Path(tmp) / f"{job}_{rank}.log", "w", buffering=1)
+    sys.stdout = sys.stderr = log
+    try:
+        os.environ.update(DVG_COORDINATOR=f"localhost:{port}",
+                          DVG_NUM_PROCESSES=str(n), DVG_PROCESS_ID=str(rank))
+        sys.path.insert(0, str(ROOT))
+        import torch
+        import torch.distributed as dist
+        from dvg_tpu_torch.parallel import distributed_init
+        check(distributed_init(CARD, "nccl" if job == "nccl1" else "gloo"),
+              "the DVG_* env did not start a group")
+        res = DIST_JOBS[job](rank, n, Path(tmp))
+        res["backend"] = dist.get_backend()
+        torch.save(res, Path(tmp) / f"{job}_{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        log.flush()
+
+
+def _f32_exact():
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _tiny_eval_fns(spec, nsample: int):
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.models.dvg import DVGModel
+    cfg = DVGConfig(**DIST_TINY_EVAL)
+    model = DVGModel(cfg, device="cpu")
+    model.load_state_dict(spec["eval_sd"])
+    return make_rollout_fns(model.to(CARD), cfg.replace(nsample=nsample))
+
+
+def _job_nccl1(rank, n, tmp):
+    """(a): NCCL at world size 1: the tiny f64 step through the group path
+    against the same step without a group, and the sharded eval on a
+    ("sample", 1) mesh against the plain call."""
+    import torch
+    import torch.distributed as dist
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+    from dvg_tpu_torch.parallel import make_mesh, shard_diverse_metrics
+    from dvg_tpu_torch.parallel import dryrun as D
+    spec = torch.load(tmp / "dist_spec.pt", weights_only=False)
+    _f32_exact()
+    torch.backends.cudnn.deterministic = True
+    cfg = DVGConfig(**TRAIN_TINY)
+    dp = D.step_result(cfg, spec["train_sd"], spec["train_x"],
+                       dist.group.WORLD, CARD)
+    one = D.step_result(cfg, spec["train_sd"], spec["train_x"], None, CARD)
+    dp.pop("state")
+    one.pop("state")
+    fns = _tiny_eval_fns(spec, DIST_TINY_EVAL["nsample"])
+    sharded = shard_diverse_metrics(fns, make_mesh([("sample", 1)]))
+    ssim_psnr_batch_cyclic.launches = 0
+    got = sharded(spec["x_eval"], seed=DIST_TINY_SEED, device=CARD)
+    torch.cuda.synchronize()
+    launches = ssim_psnr_batch_cyclic.launches
+    plain = fns.diverse_metrics(spec["x_eval"], seed=DIST_TINY_SEED,
+                                device=CARD)
+    # metrics and gradients at 1e-12; the weights, BN statistics and Adam
+    # moments after the update at phase 11a's 1e-9: the group path's
+    # two-pass BN variance differs from torch.var_mean's in the last bits,
+    # and Adam's first update lr·g/(|g| + 1e-8) turns such a difference in
+    # a gradient near 0 into ~1e-11
+    errs = D.step_errors(dp, one, DIST_NCCL_TOL)
+    errs.update({k: v for k, v in D.step_errors(dp, one, DIST_F64_TOL).items()
+                 if k in ("state", "moments")})
+    return dict(step_errors=errs,
+                eval_errs=max_errs(_metrics_list(got), _metrics_list(plain)),
+                launches=launches)
+
+
+def _timed_sharded(metrics, x, seed):
+    """One sharded protocol after a barrier, K1's count set to 0 just
+    before → (metrics on the CPU, ms by CUDA events, K1 launches, peak
+    GiB)."""
+    import torch
+    import torch.distributed as dist
+    from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ssim_psnr_batch_cyclic.launches = 0
+    start.record()
+    out = metrics(x, seed=seed, device=CARD)
+    end.record()
+    torch.cuda.synchronize()
+    return ({k: v.cpu() for k, v in out.items()}, start.elapsed_time(end),
+            ssim_psnr_batch_cyclic.launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _job_gloo2(rank, n, tmp):
+    """(b) and (d): two ranks on the one card over gloo."""
+    import torch
+    import torch.distributed as dist
+    from dvg_tpu_torch.checkpoint import load_checkpoint, load_model
+    from dvg_tpu_torch.cli import generate as gen_cli
+    from dvg_tpu_torch.cli import train as train_cli
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.parallel import make_mesh, shard_diverse_metrics
+    from dvg_tpu_torch.parallel import dryrun as D
+    spec = torch.load(tmp / "dist_spec.pt", weights_only=False)
+    _f32_exact()
+    res = {}
+    # (b1) the tiny f64 step, 2 × B 4, against one process on B 8
+    cfg = DVGConfig(**TRAIN_TINY)
+    b = cfg.batch_size // n
+    dp = D.step_result(cfg, spec["train_sd"],
+                       spec["train_x"][:, rank * b:(rank + 1) * b],
+                       dist.group.WORLD, CARD)
+    dp.pop("state")
+    if rank == 0:
+        one = D.step_result(cfg, spec["train_sd"], spec["train_x"], None,
+                            CARD)
+        one.pop("state")
+        res["step_errors"] = D.step_errors(dp, one, DIST_F64_TOL)
+    # (b2) the full-width sample-sharded protocol from the phase-4
+    # checkpoint (every rank reads rank 0's bytes), f32 then bf16
+    saved, model = load_model(spec["ckpt"], device=CARD)
+    x = spec["x"].to(CARD)
+    mesh = make_mesh([("sample", n)])
+    for dtype in ("float32", "bfloat16"):
+        local = make_rollout_fns(model, saved.replace(
+            dtype=dtype, nsample=saved.nsample // n))
+        metrics = shard_diverse_metrics(local, mesh)
+        if dtype == "bfloat16":
+            metrics(x, seed=2, device=CARD)              # warm-up
+        res[dtype] = _timed_sharded(metrics, x, MAIN_SEED)
+    del x, model
+    torch.cuda.empty_cache()
+    # (d) the training CLI --mesh 2 (2 epochs, then a resumed third), each
+    # rank with its own output directory, then the eval CLI --mesh_samples 2
+    # on rank 0's checkpoint
+    root = tmp / "dist_cli"
+    own = root / f"rank{rank}"
+    args = ["--dataset", "smmnist", "--data_root", str(root / "no_mnist"),
+            "--output_path", str(own / "run"),
+            "--log_dir", str(own / "run" / "logs"),
+            "--epoch_size", str(DIST_EPOCH), "--ckpt_every", "1",
+            "--dtype", "bfloat16", "--mesh", "2", "--dist_backend", "gloo"]
+    t0 = time.perf_counter()
+    check(train_cli.main(args + ["--niter", "2"]) == 0, "train CLI failed")
+    res["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(train_cli.main(args + ["--niter", "3", "--resume"]) == 0,
+          "train CLI --resume failed")
+    res["resume_s"] = time.perf_counter() - t0
+    wall, per_call, clips, best, k2, peak = cli_run(
+        str(own / "run"), str(root / "no_mnist"), own / "eval",
+        "--num_batches", str(DIST_CLI_BATCHES), "--mesh_samples", "2",
+        "--dist_backend", "gloo")
+    res.update(cli_wall=wall, cli_per_call=per_call, cli_k2=k2,
+               cli_peak=peak)
+    trained = load_checkpoint(str(root / "rank0" / "run"), synced=False)[0]
+    flags = gen_cli.build_parser().parse_args([])
+    res["cli_free"] = (flags.override_n_eval or
+                       trained.generation_override().n_eval) - trained.n_past
+    if rank == 0:
+        res["rescore"] = rescore_best(own / "eval", clips, best,
+                                      trained.n_past, flags.nsample)
+    return res
+
+
+def _job_tiny_eval(rank, n, tmp):
+    """(c): n ranks on the card over gloo: the tiny eval on dryrun's mesh
+    for n (4: ("sample", 2) × ("data", 2); 2: ("sample", 2)), and the
+    full_cov guard on it."""
+    import torch
+    from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+    from dvg_tpu_torch.parallel import make_mesh, shard_diverse_metrics
+    from dvg_tpu_torch.parallel.dryrun import mesh_axes
+    spec = torch.load(tmp / "dist_spec.pt", weights_only=False)
+    _f32_exact()
+    axes = mesh_axes(n)
+    local = _tiny_eval_fns(spec, DIST_TINY_EVAL["nsample"] // axes[0][1])
+    mesh = make_mesh(axes)
+    ssim_psnr_batch_cyclic.launches = 0
+    got = shard_diverse_metrics(local, mesh)(spec["x_eval"],
+                                             seed=DIST_TINY_SEED, device=CARD)
+    torch.cuda.synchronize()
+    res = dict(metrics={k: v.cpu() for k, v in got.items()},
+               launches=ssim_psnr_batch_cyclic.launches,
+               coordinate=list(mesh.get_coordinate()), guard="no error")
+    try:
+        shard_diverse_metrics(local, mesh, full_cov=True)
+    except ValueError as e:
+        res["guard"] = str(e)
+    return res
+
+
+def dist_spec(ckpt=None, x_main=None) -> dict:
+    """The tiny inputs of phase 14's jobs (seeded unit-gain weights with a
+    trained-looking GP; clips from seeds) and the full-width ones given."""
+    import numpy as np
+    from dvg_tpu_torch.config import DVGConfig
+    cfg_t = DVGConfig(**TRAIN_TINY)
+    cfg_e = DVGConfig(**DIST_TINY_EVAL)
+    return dict(
+        ckpt=ckpt, x=x_main,
+        train_sd=with_trained_gp(unit_gain_model(cfg_t, "cpu"),
+                                 seed=2).state_dict(),
+        train_x=np.random.RandomState(TRAIN_TINY_SEED).rand(
+            cfg_t.seq_len_train, cfg_t.batch_size, 64, 64, 3),
+        eval_sd=with_trained_gp(unit_gain_model(cfg_e, "cpu"),
+                                seed=3).state_dict(),
+        x_eval=np.random.RandomState(6).rand(
+            cfg_e.n_eval, cfg_e.batch_size, 64, 64, 3).astype(np.float32))
+
+
+DIST_JOBS = {"nccl1": _job_nccl1, "gloo2": _job_gloo2,
+             "tiny_eval": _job_tiny_eval}
+
+
+def dist_spawn(tmp: Path, job: str, n: int) -> list:
+    """Run `job` on n ranks (the spec in tmp/dist_spec.pt) → each rank's
+    results; a rank that fails fails the phase with the ends of the
+    ranks' logs."""
+    import torch
+    from dvg_tpu_torch.parallel.dryrun import free_port, run_ranks
+    try:
+        run_ranks(_dist_rank, n, (free_port(), str(tmp), job),
+                  DIST_TIMEOUT_S)
+    except RuntimeError as e:
+        logs = "\n".join(
+            f"--- rank {r} ---\n" + "\n".join(
+                (tmp / f"{job}_{r}.log").read_text().splitlines()[-30:])
+            for r in range(n) if (tmp / f"{job}_{r}.log").exists())
+        raise SmokeFailure(f"[dist] {job}: {e}\n{logs}") from None
+    return [torch.load(tmp / f"{job}_{r}.pt", weights_only=False)
+            for r in range(n)]
+
+
+def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
+    """Phase 14 (module docstring). `x_main` and `out_main` are the main
+    path's clip and bf16 metrics (phase 7), on the CPU. → K1's launches
+    per rank on the sharded protocol and K2's re-scoring the sharded eval
+    CLI's GIFs."""
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    tmp = Path(tmp) / "dist"
+    (tmp / "dist_cli" / "no_mnist").mkdir(parents=True)
+    cfg_e = DVGConfig(**DIST_TINY_EVAL)
+    spec = dist_spec(ckpt, x_main)
+    torch.save(spec, tmp / "dist_spec.pt")
+    torch.cuda.empty_cache()
+
+    def spawn(job, n):
+        t0 = time.perf_counter()
+        return dist_spawn(tmp, job, n), time.perf_counter() - t0
+
+    # (a) NCCL, world 1
+    (a,), a_s = spawn("nccl1", 1)
+    print(f"[dist] (a) {a['backend']} world 1 on the card ({a_s:.1f} s with "
+          f"start-up): tiny f64 step through the group path vs the same "
+          f"step without a group, excess over {DIST_NCCL_TOL} (state and "
+          f"moments {DIST_F64_TOL}): "
+          f"{a['step_errors']}; the ('sample', 1)-sharded tiny f32 eval vs "
+          f"the plain call max|d| {a['eval_errs'][3]:.3e}, K1 launches "
+          f"{a['launches']}")
+    n_free_tiny = cfg_e.n_eval - cfg_e.n_past
+    check(a["backend"] == "nccl", f"(a) ran on {a['backend']}")
+    check(max(a["step_errors"].values()) <= 0,
+          f"(a) NCCL step vs no group: {a['step_errors']}")
+    check(a["eval_errs"][3] <= 1e-12, f"(a) eval: {a['eval_errs']}")
+    check(a["launches"] == n_free_tiny, f"(a) K1 launches {a['launches']}")
+
+    # the one-process references on the card: the full-width f32 protocol
+    # (bf16: the main path's own run), the tiny eval
+    _f32_exact()
+    torch.backends.cudnn.benchmark = False
+    saved, model = load_model(ckpt, device=CARD)
+    ref32 = make_rollout_fns(model, saved.replace(dtype="float32")
+                             ).diverse_metrics(x_main.to(CARD),
+                                               seed=MAIN_SEED, device=CARD)
+    ref32 = {k: v.cpu() for k, v in ref32.items()}
+    del model
+    ref_tiny = {k: v.cpu() for k, v in _tiny_eval_fns(
+        spec, cfg_e.nsample).diverse_metrics(
+            spec["x_eval"], seed=DIST_TINY_SEED, device=CARD).items()}
+    torch.cuda.empty_cache()
+
+    # (b) and (d): two ranks sharing the card over gloo
+    b2, b_s = spawn("gloo2", 2)
+    s_n, b, n_free = saved.nsample, saved.batch_size, saved.n_eval - \
+        saved.n_past
+    e32 = max(max_errs(_metrics_list(r["float32"][0]), _metrics_list(ref32))
+              for r in b2)
+    e16 = max(max_errs(_metrics_list(r["bfloat16"][0]),
+                       _metrics_list(out_main)) for r in b2)
+    ms = [r["bfloat16"][1] for r in b2]
+    launches = [r[dt][2] for dt in ("float32", "bfloat16") for r in b2]
+    print(f"[dist] (b) gloo, 2 ranks on one card ({b_s:.1f} s with start-up "
+          f"and (d)); tiny f64 step 2 x B 4 vs one process on B 8, excess "
+          f"over {DIST_F64_TOL}: {b2[0]['step_errors']}")
+    print(f"[dist] (b) DCGAN-64 sample-sharded S {s_n // 2} per rank, B {b}, "
+          f"n_past {saved.n_past}, n_eval {saved.n_eval}, {CARD_LINE}: f32 "
+          f"vs one process (S {s_n}) max|dssim| {e32[0]:.3e} max|dpsnr| "
+          f"{e32[1]:.3e} dB mse rel {e32[2]:.3e} (tol {DIST_F32_TOL}); K1 "
+          f"launches per rank f32, bf16 {launches}")
+    print(f"[dist] (b) bf16 ms per rank {[round(m, 1) for m in ms]} (events "
+          f"around the sharded call, all-gather included), "
+          f"{s_n * n_free * b / (max(ms) / 1e3):,.0f} frames/s of the pair; "
+          f"peak GiB per rank {[round(r['bfloat16'][3], 2) for r in b2]}; "
+          f"drift from the one-process bf16 run (phase 7) max|dssim| "
+          f"{e16[0]:.3e} max|dpsnr| {e16[1]:.3e} dB mse rel {e16[2]:.3e} "
+          f"(band {DIST_BF16_TOL}). Two ranks share one card: not a speedup")
+    check(max(b2[0]["step_errors"].values()) <= 0,
+          f"(b) 2-rank step vs one process: {b2[0]['step_errors']}")
+    check(within(e32, DIST_F32_TOL), f"(b) f32 sharded vs one process: "
+          f"{e32}")
+    check(within(e16, DIST_BF16_TOL), f"(b) bf16 drift {e16}")
+    check(launches == [n_free] * 4, f"(b) K1 launches per rank {launches}")
+    for r in b2:
+        for k, v in r["bfloat16"][0].items():
+            check(tuple(v.shape) == (s_n, n_free, b) and
+                  bool(torch.isfinite(v).all()), f"(b) {k} {v.shape}")
+
+    # (d) the CLIs' results
+    root = tmp / "dist_cli"
+    recs = read_records(root / "rank0" / "run" / "logs")
+    epochs = [r for r in recs if r["kind"] == "epoch"]
+    files = sorted(p.name for p in (root / "rank0" / "run").iterdir())
+    cli_free = b2[0]["cli_free"]
+    worst, k2 = b2[0]["rescore"]
+    for r in epochs:
+        print(f"[dist] (d) train CLI --mesh 2 --dist_backend gloo, bf16 "
+              f"smmnist C 1, B 50 (25 per rank), T 15: epoch {r['step']} "
+              f"{r['step_s'] * DIST_EPOCH:.2f} s, {r['step_s'] * 1e3:.1f} "
+              f"ms/step (two ranks sharing one card: not a speedup; the "
+              f"gloo all-reduces are in it), epoch_mse {r['epoch_mse']:.5f}")
+    print(f"[dist] (d) --niter 2 {b2[0]['train_s']:.1f} s, --resume --niter "
+          f"3 {b2[0]['resume_s']:.1f} s wall; rank 0's files {files}; rank 1 "
+          f"wrote nothing: {not (root / 'rank1').exists()}; eval CLI "
+          f"--mesh_samples 2: {b2[0]['cli_wall']:.1f} s wall for "
+          f"{DIST_CLI_BATCHES} batch, K1 launches per batch per rank "
+          f"{[r['cli_per_call'] for r in b2]}, peak GiB per rank "
+          f"{[round(r['cli_peak'], 2) for r in b2]}; rank 0's GIFs' best "
+          f"column re-scored by K2 ({k2} launches) vs the npz max|dssim| "
+          f"{worst[0]:.3e} max|dpsnr| {worst[1]:.3e} dB (tol "
+          f"{CLI_TOL['float32']})")
+    check([r["step"] for r in epochs] == [0, 1, 2] and
+          all(math.isfinite(r["epoch_mse"]) for r in epochs),
+          f"(d) epoch records {epochs}")
+    check({"model.ckpt", "sample_2.gif", "logs"} <= set(files),
+          f"(d) files {files}")
+    check(not (root / "rank1").exists(), "(d) rank 1 wrote files")
+    check(all(r["cli_per_call"] == [cli_free] * DIST_CLI_BATCHES
+              for r in b2),
+          f"(d) K1 launches per batch {[r['cli_per_call'] for r in b2]}")
+    check(worst[0] <= CLI_TOL["float32"]["ssim_atol"] and
+          worst[1] <= CLI_TOL["float32"]["psnr_atol"],
+          f"(d) the GIF's best column is not the scored future: {worst}")
+
+    # (c) four ranks: the 2-D mesh and the full_cov guard
+    c4, c_s = spawn("tiny_eval", 4)
+    ec = max(max_errs(_metrics_list(r["metrics"]), _metrics_list(ref_tiny))
+             for r in c4)
+    print(f"[dist] (c) gloo, 4 ranks on one card ({c_s:.1f} s with start-up):"
+          f" ('sample', 2) x ('data', 2) tiny f32 eval, coordinates "
+          f"{[r['coordinate'] for r in c4]}, vs one process max|dssim| "
+          f"{ec[0]:.3e} max|dpsnr| {ec[1]:.3e} dB mse rel {ec[2]:.3e}; K1 "
+          f"launches per rank {[r['launches'] for r in c4]}; full_cov "
+          f"guard: {c4[0]['guard'][:60]}...")
+    check(within(ec, DIST_F32_TOL), f"(c) 2-D eval vs one process: {ec}")
+    check([r["coordinate"] for r in c4] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          "(c) mesh coordinates")
+    check(all(r["launches"] == n_free_tiny for r in c4),
+          "(c) K1 launches per rank")
+    check(all("full_cov" in r["guard"] for r in c4), "(c) full_cov guard")
+    return dict(k1=[r["bfloat16"][2] for r in b2], k2=k2)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2210,6 +2651,7 @@ def main() -> int:
             k2["launches"] = timed("gen-full", phase_gen_full, cfg, fns, x,
                                    out)
             timed("profile", phase_profile, fns, x)
+            x_main, out_main = x.cpu(), {k: v.cpu() for k, v in out.items()}
             del fns, x, out
             torch.cuda.empty_cache()
             timed("cli", phase_cli, tmp)
@@ -2221,6 +2663,8 @@ def main() -> int:
             train_ms = timed("backbones train", phase_backbones_train)
             timed("backbones cli", phase_backbones_cli, tmp)
             timed("import", phase_import, tmp)
+            dist = timed("dist", phase_dist, tmp, ckpt, x_main, out_main)
+            k1["dist_launches"], k2["dist_launches"] = dist["k1"], dist["k2"]
         print(f"[backbones] {CARD_LINE}: " + "; ".join(
             f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
             f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"
@@ -2239,7 +2683,7 @@ def main() -> int:
                     launches=k["launches"], max_abs_err=k["max_abs_err"],
                     ms=k["ms"], plain_ms=k["plain_ms"],
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                    library_ms=None)
+                    library_ms=None, dist_launches=k["dist_launches"])
                for name, replaces, k in (
                    ("ssim_cyclic", "dvg_tpu/ops/pallas_ssim.py:187", k1),
                    ("ssim_images", "dvg_tpu/ops/pallas_ssim.py:153", k2))]

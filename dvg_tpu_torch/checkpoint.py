@@ -9,6 +9,7 @@ maps with sorted keys.
 
     cfg, model = load_model("runs/mnist", device="cuda")
     cfg, state_dict, payload = load_checkpoint("runs/mnist/model.ckpt")
+    blob = read_checkpoint_bytes_synced("runs/mnist")   # every rank
     save_checkpoint("out", cfg, model, payload)
     save_train_state("out", cfg, state)
     saved_cfg, state = load_train_state("out", run_cfg, device="cuda")
@@ -36,11 +37,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvg_tpu_torch import _msgpack
 from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.convert import _lists, params_from_jax, params_to_jax
 from dvg_tpu_torch.models.dvg import DVGModel
+from dvg_tpu_torch.parallel.collectives import broadcast_, world_size
 from dvg_tpu_torch.train.step import TrainState, train_state
 
 CKPT_NAME = "model.ckpt"
@@ -61,9 +64,56 @@ def _state_dict(tree: Any) -> Any:
     return tree
 
 
-def _payload(path: str) -> Tuple[DVGConfig, Dict[str, Any]]:
-    with open(_file(path), "rb") as f:
-        payload = _msgpack.unpackb(f.read())
+def read_checkpoint_bytes_synced(path: str, group=None) -> bytes:
+    """The checkpoint file's bytes, identical on every rank of `group` (the
+    default group for None; counterpart of dvg_tpu/train/checkpoint.py:
+    102-148). Checkpoints are written by the coordinator only, so a peer's
+    disk may hold a missing or stale file: rank 0 reads it and broadcasts
+    a header [err, size_hi, size_lo] (uint32 words, carried in an int64
+    tensor), then the bytes. A failed read on rank 0 sets err, so every
+    peer raises instead of waiting in the collective. Without a process
+    group of more than one rank, a plain read."""
+    path = _file(path)
+    if world_size(group) == 1:
+        with open(path, "rb") as f:
+            return f.read()
+    blob, err = b"", None
+    if dist.get_rank(group) == 0:
+        try:
+            with open(path, "rb") as f:
+                blob = f.read()
+        except OSError as e:
+            err = e
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    header = torch.tensor([int(err is not None), len(blob) >> 32,
+                           len(blob) & 0xFFFFFFFF], dtype=torch.int64)
+    broadcast_([header], src, group)
+    if int(header[0]):
+        if err is not None:
+            raise err
+        raise RuntimeError(f"rank 0 failed to read checkpoint {path!r}; "
+                           "this rank stops with it")
+    size = (int(header[1]) << 32) | int(header[2])
+    data = (torch.frombuffer(bytearray(blob), dtype=torch.uint8) if blob
+            else torch.empty((size,), dtype=torch.uint8))
+    broadcast_([data], src, group)
+    return data.numpy().tobytes()
+
+
+def _synced(synced: Optional[bool]) -> bool:
+    """None means: synced when a process group of more than one rank is
+    up."""
+    return world_size() > 1 if synced is None else synced
+
+
+def _payload(path: str, synced: Optional[bool] = None
+             ) -> Tuple[DVGConfig, Dict[str, Any]]:
+    if _synced(synced):
+        blob = read_checkpoint_bytes_synced(path)
+    else:
+        with open(_file(path), "rb") as f:
+            blob = f.read()
+    payload = _msgpack.unpackb(blob)
     if not isinstance(payload, dict) or set(payload) != set(PAYLOAD_KEYS):
         keys = sorted(payload) if isinstance(payload, dict) else payload
         raise ValueError(f"{path}: not a dvg_tpu checkpoint (top-level "
@@ -71,26 +121,32 @@ def _payload(path: str) -> Tuple[DVGConfig, Dict[str, Any]]:
     return DVGConfig.from_dict(json.loads(payload["config"])), payload
 
 
-def load_checkpoint(path: str) -> Tuple[DVGConfig, Dict[str, torch.Tensor],
-                                        Dict[str, Any]]:
+def load_checkpoint(path: str, synced: Optional[bool] = None
+                    ) -> Tuple[DVGConfig, Dict[str, torch.Tensor],
+                               Dict[str, Any]]:
     """`path` (a file, or a directory holding model.ckpt) → (its config, a
-    state_dict for `DVGModel(cfg)` on the CPU, the decoded payload)."""
-    cfg, payload = _payload(path)
+    state_dict for `DVGModel(cfg)` on the CPU, the decoded payload).
+    `synced` reads it by `read_checkpoint_bytes_synced`, which every rank
+    must then call; None means when a process group of more than one rank
+    is up (likewise for the loaders below)."""
+    cfg, payload = _payload(path, synced)
     sd = params_from_jax(_lists(payload["params"]), _lists(payload["stats"]),
                          cfg)
     return cfg, sd, payload
 
 
-def load_model(path: str, device="cuda") -> Tuple[DVGConfig, DVGModel]:
+def load_model(path: str, device="cuda", synced: Optional[bool] = None
+               ) -> Tuple[DVGConfig, DVGModel]:
     """(config, DVGModel with the checkpoint's weights on `device`)."""
-    cfg, sd, _ = load_checkpoint(path)
+    cfg, sd, _ = load_checkpoint(path, synced)
     model = DVGModel(cfg, device="cpu")
     model.load_state_dict(sd)
     return cfg, model.to(device)
 
 
 def load_train_state(path: str, cfg: Optional[DVGConfig] = None,
-                     device="cuda") -> Tuple[DVGConfig, TrainState]:
+                     device="cuda", synced: Optional[bool] = None
+                     ) -> Tuple[DVGConfig, TrainState]:
     """(the file's config, a TrainState on `device`). With `cfg`, the run's
     config, the model and its optimizers are built from `cfg`, as
     `dvg_tpu`'s training CLI builds them from its command line, and the
@@ -101,7 +157,7 @@ def load_train_state(path: str, cfg: Optional[DVGConfig] = None,
     ValueError, and leaves of other shapes raise `load_state_dict`'s
     RuntimeError, naming the leaf. A file without optimizer state (an
     eval checkpoint) starts fresh optimizers at its step."""
-    saved_cfg, payload = _payload(path)
+    saved_cfg, payload = _payload(path, synced)
     cfg = cfg or saved_cfg
     params, stats = _lists(payload["params"]), _lists(payload["stats"])
     model = DVGModel(cfg, device="cpu")

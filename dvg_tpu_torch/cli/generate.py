@@ -26,8 +26,19 @@ pairs where the scored rollout ran S·B clips, gives the scored futures to
 f32 rounding. In bf16 the two batch sizes can take different cuDNN
 kernels, so a re-rolled future is the scored one to bf16 rounding.
 
-Runs on the card unless --device cpu. Sample-parallel and 2-D meshes
-(--mesh_samples, --mesh_data) wait for ROADMAP queue 1 item 14.
+Runs on the card unless --device cpu.
+
+Sharded over S·D processes, one per rank (torchrun --nproc_per_node S·D,
+or `dvg_tpu`'s DVG_COORDINATOR / DVG_NUM_PROCESSES / DVG_PROCESS_ID env):
+--mesh_samples S splits the futures over S ranks and --mesh_data D the
+batch rows over D (D > 1 needs S > 1, as in `dvg_tpu`; --full_cov refuses
+D > 1). Every rank reads rank 0's checkpoint bytes, scores its block of
+futures and rows, and gathers the whole (S, n_free, B) metrics
+(`parallel.shard_diverse_metrics`); rank 0 alone runs the posterior, the
+re-roll and the GIFs and writes every file. The blocks draw the eps of the
+one-process run, so the scores, and the futures a re-roll replays, are the
+one-process run's. The backend is nccl on the card (one rank per card) and
+gloo on the CPU; --dist_backend gloo shares one card between ranks.
 """
 
 from __future__ import annotations
@@ -38,11 +49,14 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvg_tpu_torch.checkpoint import load_model
-from dvg_tpu_torch.config import resolve_device
 from dvg_tpu_torch.data import Loader, load_dataset
 from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
+from dvg_tpu_torch.parallel import (distributed_init, is_coordinator,
+                                    make_mesh, rank_device,
+                                    shard_diverse_metrics, world_size)
 from dvg_tpu_torch.utils import (MetricLogger, StepTimer, add_border,
                                  save_gif_with_text, save_image,
                                  trace_context)
@@ -77,11 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nsample", type=int, default=100)
     p.add_argument("--num_batches", type=int, default=5)
     p.add_argument("--mesh_samples", type=int, default=0,
-                   help="shard the sample axis over N devices (not ported: "
-                        "ROADMAP queue 1 item 14)")
+                   help="shard the futures over N ranks")
     p.add_argument("--mesh_data", type=int, default=1,
                    help="with --mesh_samples, also shard the batch rows "
-                        "(not ported: ROADMAP queue 1 item 14)")
+                        "over N ranks")
     p.add_argument("--override_n_eval", type=int, default=0)
     p.add_argument("--override_batch_size", type=int, default=0)
     p.add_argument("--gif_rows", type=int, default=10,
@@ -108,20 +121,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cpu runs the kernels' "
                         "plain versions)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default nccl on the card, "
+                        "gloo on the CPU; gloo shares one card between "
+                        "ranks)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_samples > 0 or args.mesh_data > 1:
+    if args.mesh_data > 1 and args.mesh_samples <= 1:
         raise SystemExit(
-            "--mesh_samples/--mesh_data: sample-parallel and 2-D mesh eval "
-            "are not ported yet (ROADMAP queue 1 item 14); run without them")
-    dev = resolve_device(args.device)
+            "--mesh_data > 1 extends the sample-parallel mesh to 2-D and "
+            "requires --mesh_samples > 1; it would otherwise be silently "
+            "ignored")
+    created = not dist.is_initialized()
+    created &= distributed_init(args.device, args.dist_backend)
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
+    n_s, n_d = args.mesh_samples, max(1, args.mesh_data)
+    world = world_size()
+    if (n_s or 1) * n_d != world:
+        raise SystemExit(
+            f"--mesh_samples {n_s} --mesh_data {args.mesh_data} shard over "
+            f"{(n_s or 1) * n_d} rank(s) but {world} process(es) run: launch "
+            f"{(n_s or 1) * n_d} with torchrun --nproc_per_node, or with the "
+            "DVG_COORDINATOR, DVG_NUM_PROCESSES and DVG_PROCESS_ID env "
+            "contract")
+    dev = rank_device(args.device)
     timer = StepTimer(warmup=0)
 
     # ---- restore-then-override -------------------------------------------
     timer.start()
+    # under a process group every rank reads rank 0's bytes
     saved_cfg, model = load_model(args.model_dir, device=dev)
     load_s = timer.stop(dev)
     cfg = saved_cfg.generation_override()
@@ -148,13 +186,23 @@ def main(argv=None) -> int:
     loader = Loader(test_ds, cfg.batch_size, shuffle=False, seed=cfg.seed,
                     num_threads=args.data_threads, device=dev)
     fns = make_rollout_fns(model, cfg)
+    metrics_fn = fns.diverse_metrics
+    if n_s and dist.is_initialized():
+        if cfg.nsample % n_s or cfg.batch_size % n_d:
+            raise SystemExit(f"--nsample {cfg.nsample} and batch "
+                             f"{cfg.batch_size} must divide over "
+                             f"--mesh_samples {n_s} and --mesh_data {n_d}")
+        mesh = make_mesh([("sample", n_s), ("data", n_d)])
+        local = make_rollout_fns(model, cfg.replace(nsample=cfg.nsample // n_s))
+        metrics_fn = shard_diverse_metrics(local, mesh,
+                                           full_cov=cfg.full_cov_sampling)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     if cfg.dtype == "float32":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
-        _run_batches(args, cfg, dev, fns, loader, logger, timer)
+        _run_batches(args, cfg, dev, fns, metrics_fn, loader, logger, timer)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
@@ -162,9 +210,13 @@ def main(argv=None) -> int:
     return 0
 
 
-def _run_batches(args, cfg, dev, fns, loader, logger, timer) -> None:
-    """Each test batch: load it, score it (or run the GP trigger), log,
-    save the arrays and write the GIFs."""
+def _run_batches(args, cfg, dev, fns, metrics_fn, loader, logger, timer
+                 ) -> None:
+    """Each test batch: load it, score it by `metrics_fn` (or run the GP
+    trigger), log, save the arrays and write the GIFs. Under a process
+    group every rank scores its block and the coordinator alone does the
+    rest."""
+    lead = is_coordinator()
     for bi in range(args.num_batches):
         times = {}
 
@@ -177,17 +229,21 @@ def _run_batches(args, cfg, dev, fns, loader, logger, timer) -> None:
         print(f"batch {bi}: loading...", flush=True)
         x = stage("batch", lambda: loader.next_batch(bi))
         seed = cfg.seed * 1000 + bi
-        with trace_context(args.trace_dir if bi == 0 else None):
+        if cfg.gp_trigger_flag and not lead:
+            continue
+        with trace_context(args.trace_dir if bi == 0 and lead else None):
             if cfg.gp_trigger_flag:
                 print(f"batch {bi}: gp-trigger rollout...", flush=True)
                 frames, diag = stage("trigger", lambda: fns.gp_trigger(
                     x, seed=seed, device=dev))
             else:
-                print(f"batch {bi}: posterior rollout...", flush=True)
-                post = stage("posterior", lambda: fns.posterior(x, device=dev))
+                if lead:
+                    print(f"batch {bi}: posterior rollout...", flush=True)
+                    post = stage("posterior", lambda: fns.posterior(
+                        x, device=dev))
                 print(f"batch {bi}: {cfg.nsample}-sample diverse rollout + "
                       "in-loop SSIM/PSNR...", flush=True)
-                met = stage("metrics", lambda: fns.diverse_metrics(
+                met = stage("metrics", lambda: metrics_fn(
                     x, seed=seed, device=dev))
         if cfg.gp_trigger_flag:
             stage("strips", lambda: _save_trigger_strips(
@@ -203,6 +259,9 @@ def _run_batches(args, cfg, dev, fns, loader, logger, timer) -> None:
         logger.save_arrays(f"eval_batch{bi}", ssim=ssim, psnr=psnr)
         logger.log(bi, {"ssim_best_mean": float(best_ssim.mean()),
                         "psnr_mean": float(psnr.mean())}, kind="eval")
+        if not lead:
+            logger.log(bi, times, kind="time")
+            continue
         print(f"batch {bi}: re-rolling selected samples for GIFs...",
               flush=True)
         # per GIF row, [best by SSIM, 3 random] samples, re-rolled exactly:

@@ -4,6 +4,22 @@ same flags and defaults, plus --device):
     python -m dvg_tpu_torch.cli.train --dataset smmnist --data_root DIR \\
         --output_path RUN --log_dir RUN/logs [--device cuda|cpu] ...
 
+Data parallel over N processes, one per rank:
+
+    torchrun --nproc_per_node N -m dvg_tpu_torch.cli.train --mesh N ...
+
+or N processes each with DVG_COORDINATOR=host:port, DVG_NUM_PROCESSES=N
+and its DVG_PROCESS_ID (`dvg_tpu`'s env contract). --mesh must equal the
+number of processes (0: whatever that number is). Each rank steps on its
+B/N rows of the global batch --batch_size; BN's statistics, the GP's
+num_data and the averaged gradients are the global batch's, so every rank
+holds the weights of one process training on the whole batch
+(`train/step.py`). The backend is nccl on the card (one rank per card)
+and gloo on the CPU; --dist_backend gloo shares one card between ranks.
+Only rank 0 writes: metrics.jsonl, the plots and the checkpoint; with
+--resume rank 0 reads the checkpoint and broadcasts the state, so no rank
+keeps its seeded weights.
+
   * seeded weights (--seed), or with --resume the TrainState in
     <output_path>/model.ckpt, written by either package: its weights, BN
     statistics, Adam moments, update counts and step, under the command
@@ -29,7 +45,6 @@ same flags and defaults, plus --device):
 for the run. The shapes of a run are fixed, so cuDNN's autotuner
 (cudnn.benchmark) is on; both settings are restored after the run. Runs on
 the card unless --device cpu.
-Data-parallel training (--mesh above 1) waits for ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -41,12 +56,16 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dvg_tpu_torch.checkpoint import CKPT_NAME, load_train_state, \
     save_train_state
-from dvg_tpu_torch.config import DVGConfig, resolve_device
+from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.data import Loader, load_dataset
 from dvg_tpu_torch.generate.rollout import make_rollout_fns
+from dvg_tpu_torch.parallel import (broadcast_state, distributed_init,
+                                    is_coordinator, rank_device, world_size)
+from dvg_tpu_torch.parallel.collectives import broadcast_object
 from dvg_tpu_torch.train import init_train_state, make_train_step
 from dvg_tpu_torch.utils import (MetricLogger, StepTimer, save_gif,
                                  save_image, trace_context)
@@ -87,8 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_digits", type=int, default=2)
     # the JAX package's extras
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel device count (not ported above 1: "
-                        "ROADMAP queue 1 item 14)")
+                   help="data-parallel ranks; must equal the number of "
+                        "processes launched (0: that number)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--ckpt_every", type=int, default=4)
     p.add_argument("--trace_dir", default="")
@@ -102,29 +121,56 @@ def build_parser() -> argparse.ArgumentParser:
     # the port's own
     p.add_argument("--device", default="cuda",
                    help="torch device to train on")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="process-group backend (default nccl on the card, "
+                        "gloo on the CPU; gloo shares one card between "
+                        "ranks)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh > 1:
+    created = not dist.is_initialized()
+    created &= distributed_init(args.device, args.dist_backend)
+    try:
+        return _main(args)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args) -> int:
+    world = world_size()
+    if (args.mesh or world) != world:
         raise SystemExit(
-            "--mesh: data-parallel training is not ported yet (ROADMAP "
-            "queue 1 item 14); run with --mesh 0 or 1")
-    dev = resolve_device(args.device)
+            f"--mesh {args.mesh} asks for {args.mesh} data-parallel ranks "
+            f"but {world} process(es) run: launch with torchrun "
+            f"--nproc_per_node {args.mesh} -m dvg_tpu_torch.cli.train --mesh "
+            f"{args.mesh} ..., or with the DVG_COORDINATOR, "
+            "DVG_NUM_PROCESSES and DVG_PROCESS_ID env contract")
+    group = dist.group.WORLD if world > 1 else None
+    rank = dist.get_rank() if group is not None else 0
+    dev = rank_device(args.device)
     fields = {f.name for f in dataclasses.fields(DVGConfig)}
     cfg = DVGConfig(**{k: v for k, v in vars(args).items() if k in fields})
     logger = MetricLogger(cfg.log_dir)
 
-    # ---- state: seeded, or resumed from either package's TrainState ------
+    # ---- state: seeded, or resumed from either package's TrainState; rank
+    # 0's on every rank (a peer's disk may hold no or a stale checkpoint) -
     ckpt_path = os.path.join(cfg.output_path, CKPT_NAME)
-    if args.resume and os.path.exists(ckpt_path):
+    resume = args.resume and is_coordinator() and os.path.exists(ckpt_path)
+    if group is not None:
+        resume = broadcast_object(resume)
+    if resume and is_coordinator():
         # the file's leaves under this run's config (its lr, beta1, GP
         # schedule and updates per batch), as dvg_tpu's CLI resumes
-        _, state = load_train_state(ckpt_path, cfg, device=dev)
-        print(f"resumed from {ckpt_path}")
+        _, state = load_train_state(ckpt_path, cfg, device=dev, synced=False)
     else:
         state = init_train_state(cfg, device=dev)
+    state = broadcast_state(state)
+    if resume:
+        print(f"resumed from {ckpt_path}" if is_coordinator()
+              else f"rank {rank} resumed from rank 0's state")
     start_epoch = state.step // cfg.epoch_size
     if args.resume and start_epoch:
         print(f"resuming at epoch {start_epoch}")
@@ -134,11 +180,12 @@ def main(argv=None) -> int:
     test_ds = load_dataset(cfg, seq_len=max(cfg.n_eval, cfg.seq_len_train),
                            split="test")
     train_loader = Loader(train_ds, cfg.batch_size, seed=cfg.seed,
-                          num_threads=cfg.data_threads, device=dev)
+                          num_threads=cfg.data_threads, device=dev,
+                          rank=rank, world=world)
     test_loader = Loader(test_ds, cfg.batch_size, seed=cfg.seed + 1,
                          shuffle=False, num_threads=cfg.data_threads,
                          device=dev)
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, group)
     plot_fns = make_rollout_fns(state.model, cfg)
     backends = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32, torch.backends.cudnn.benchmark)
@@ -189,6 +236,8 @@ def _train(args, cfg, dev, state, start_epoch, step_fn, plot_fns,
                            "frames_seen": (epoch + 1) * cfg.epoch_size
                            * cfg.batch_size,
                            "step_s": epoch_s / cfg.epoch_size}, kind="epoch")
+        if not is_coordinator():
+            continue
         print("[%02d] mse loss: %.5f (%d)" % (
             epoch, epoch_mse, epoch * cfg.epoch_size * cfg.batch_size))
         if epoch % args.ckpt_every == 0:

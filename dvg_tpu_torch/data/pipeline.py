@@ -75,13 +75,27 @@ class Loader:
     function of (seed, step): `_indices`. `num_threads` decode workers fan
     out over the items of a batch and up to `prefetch` batches are built
     ahead, both on persistent pools that `stop()` or the loader's garbage
-    collection shuts down."""
+    collection shuts down.
+
+    Data parallel (`world` > 1): `batch_size` is the global batch and the
+    loader gives rank `rank` its rows [rank·B/world, (rank+1)·B/world), as
+    `dvg_tpu`'s Loader gives each process its block. Every rank draws the
+    same global index list and keeps its slice; a synthetic dataset, whose
+    stream depends on the batch size, builds the whole global batch and
+    slices it, so the ranks together see what one process would."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, num_threads: int = 4, prefetch: int = 4,
-                 device=None):
+                 device=None, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} does not divide "
+                             f"over {world} ranks")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} outside a world of {world}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rows = slice(rank * batch_size // world,
+                          (rank + 1) * batch_size // world)
         self.shuffle = shuffle
         self.seed = seed
         self.num_threads = max(1, num_threads)
@@ -130,15 +144,17 @@ class Loader:
         return (start + np.arange(self.batch_size)) % n
 
     def _build(self, step: int):
+        """This rank's rows of step's batch."""
         if self.device is not None and hasattr(self.dataset, "device_batch"):
             return self.dataset.device_batch(
                 self.batch_size, start_index=step * self.batch_size,
-                device=self.device)
+                device=self.device)[:, self.rows].contiguous()
         if hasattr(self.dataset, "sample_batch"):
-            batch = self.dataset.sample_batch(
-                self.batch_size, start_index=step * self.batch_size)
+            batch = np.ascontiguousarray(self.dataset.sample_batch(
+                self.batch_size, start_index=step * self.batch_size
+            )[:, self.rows])
         else:
-            idxs = self._indices(step)
+            idxs = self._indices(step)[self.rows]
             if self.num_threads > 1:
                 pool, _ = self._pools()
                 items = list(pool.map(lambda i: self.dataset[int(i)][0], idxs))

@@ -24,13 +24,23 @@ forks a row whenever its GP variance norm leaves a rolling window's band.
 GP noise. Without `noise`, eps for (sample s, free-run step t, global row
 r) is `models.gp.fork_noise(seed, s, t, r, g_dim)`, a pure function of
 those ids: a re-roll of any subset of samples, rows or pairs reproduces
-the futures that were scored (`row_offset` shifts the row ids of a batch
-that is a slice of a larger one). `gp_trigger` draws with sample id 0 and
-the absolute step. With `cfg.full_cov_sampling` a fork draws one sample
-correlated across the B rows of each future from the same eps. `noise`
-holds eps explicitly instead (the parity tests pass the JAX package's):
-(n_free, K, B, g_dim) for the batch paths, (n_free, K, g_dim) for pairs,
-(n_eval − 12, B, g_dim) for gp_trigger; only the fork steps read it.
+the futures that were scored (`row_offset` and `sample_offset` shift the
+row and sample ids of a block of a larger grid). `gp_trigger` draws with
+sample id 0 and the absolute step. With `cfg.full_cov_sampling` a fork
+draws one sample correlated across the B rows of each future from the
+same eps. `noise` holds eps explicitly instead (the parity tests pass the
+JAX package's): (n_free, K, B, g_dim) for the batch paths, (n_free, K,
+g_dim) for pairs, (n_eval − 12, B, g_dim) for gp_trigger; only the fork
+steps read it.
+
+Sharded eval departs from `dvg_tpu` here, on purpose. `dvg_tpu`'s
+sample-sharded run folds its key by device (dvg_tpu/parallel/mesh.py:
+121-126), so it draws other futures than its unsharded run and its CLI
+translates keys to re-roll them. The port's ranks pass their global
+sample and row offsets instead (`parallel.shard_diverse_metrics`), so a
+sharded eval draws, and scores, exactly the futures of the one-process
+eval, and a re-roll needs no translation. Parity with `dvg_tpu`'s sharded
+functions is held by passing each device's JAX eps through `noise`.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ class RolloutFns(NamedTuple):
     posterior: Callable
     # (x, seed, noise, device) -> (S, n_eval, B, H, W, C) f32
     diverse: Callable
-    # (x, seed, noise, device, row_offset) ->
+    # (x, seed, noise, device, row_offset, sample_offset) ->
     #   {"ssim", "psnr", "mse": (S, n_free, B)}, scored in the loop by the
     #   route cfg selects: K1 (use_pallas, the CLI's default), the skimage
     #   metric in stock torch ops (--no_pallas) or Finn's (--finn)
@@ -82,6 +92,8 @@ class RolloutFns(NamedTuple):
     # (x, seed, noise, device) -> (frames (n_eval, B, ...), {"triggers",
     #   "values", "thresholds": (n_eval − 12, B), "warmup_values": (12, B)})
     gp_trigger: Callable
+    # S, the futures diverse and diverse_metrics roll per clip
+    nsample: int
 
 
 def _context_phase(model: DVGModel, x: torch.Tensor, n_past: int
@@ -353,13 +365,16 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
 
     @torch.inference_mode()
     def diverse_metrics(x, seed: int = 0, noise=None, device="cuda",
-                        row_offset: int = 0) -> Dict[str, torch.Tensor]:
+                        row_offset: int = 0, sample_offset: int = 0
+                        ) -> Dict[str, torch.Tensor]:
         """All S futures scored in the loop; frames never accumulate.
-        `row_offset` is the global id of x's first row, so a slice of a
-        batch draws what the full batch drew for the same rows."""
+        `row_offset` and `sample_offset` are the global ids of x's first
+        row and of the first of the S futures, so a block of a larger
+        (samples × rows) grid draws what the whole grid drew for the same
+        ids (`parallel.shard_diverse_metrics`)."""
         x = clip(x, device, n_eval)
         b = x.shape[1]
-        eps_at = grid_noise(noise, seed, torch.arange(s_n),
+        eps_at = grid_noise(noise, seed, sample_offset + torch.arange(s_n),
                             row_offset + torch.arange(b))
         # metrics against the f32 truth
         score = step_metrics(x[n_past:n_eval].float().contiguous())
@@ -463,7 +478,8 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                       diverse_select=diverse_select,
                       diverse_select_pairs=diverse_select_pairs,
                       diverse_rollout_with_keys=diverse_rollout_with_keys,
-                      plot_samples=plot_samples, gp_trigger=gp_trigger)
+                      plot_samples=plot_samples, gp_trigger=gp_trigger,
+                      nsample=s_n)
 
 
 def best_of_n(metric_bst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

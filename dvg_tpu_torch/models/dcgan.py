@@ -80,21 +80,22 @@ class Encoder(nn.Module):
         return h.reshape(h.shape[0], -1), skips
 
     def train_forward(self, x: torch.Tensor, calls: int,
-                      dtype: Optional[torch.dtype] = None
+                      dtype: Optional[torch.dtype] = None, group=None
                       ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                  List[L.BNStats]]:
         """Train-mode encode of x (calls·B, H, W, C), `calls` frames of B
-        each normalized by its own batch statistics, in one conv pass per
-        block with every weight cast to `dtype` → (h (calls·B, dim), skips,
-        per-block statistics (calls, C), stages then head)."""
+        each normalized by its own batch statistics (global over `group`'s
+        ranks under one), in one conv pass per block with every weight cast
+        to `dtype` → (h (calls·B, dim), skips, per-block statistics (calls,
+        C), stages then head)."""
         h = L.nchw(L.cast(x, dtype))
         skips, stats = [], []
         for stage in self.stages:
-            y, st = stage.train_forward(h, calls, dtype)
+            y, st = stage.train_forward(h, calls, dtype, group)
             h = L.leaky_relu(y)
             skips.append(L.nhwc(h))
             stats.append(st)
-        y, st = self.head.train_forward(h, calls, dtype)
+        y, st = self.head.train_forward(h, calls, dtype, group)
         stats.append(st)
         h = torch.tanh(y)
         return h.reshape(h.shape[0], -1), skips, stats
@@ -139,8 +140,8 @@ class Decoder(nn.Module):
         self.stages = nn.ModuleList(L.fold_conv_bn(s) for s in self.stages)
 
     def grouped(self, vecs: torch.Tensor, skips_u: List[torch.Tensor],
-                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None
-                ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                group=None) -> Tuple[torch.Tensor, List[L.BNStats]]:
         """Train-mode decode of N latent calls whose skips come from a few
         unique frames (`dvg_tpu`'s decoder_apply_grouped): vecs (N, B, dim),
         skips_u per encoder stage (U, B, h, w, c), group_idx (N,) int64 —
@@ -150,10 +151,10 @@ class Decoder(nn.Module):
         concat, convT(cat(d, s), W) = convT(d, W[:c_d]) + convT(s, W[c_d:]),
         so the skip half runs once per unique frame (U·B) and reaches its
         calls through an index_select (whose backward is an index_add).
-        Each call's BN uses its own batch statistics. In bf16 each half
-        rounds to bf16 before the sum, as in the JAX package. → (frames
-        (N, B, H, W, nc), per-call statistics (N, C) of the head and each
-        stage)."""
+        Each call's BN uses its own batch statistics (global over `group`'s
+        ranks under one). In bf16 each half rounds to bf16 before the sum,
+        as in the JAX package. → (frames (N, B, H, W, nc), per-call
+        statistics (N, C) of the head and each stage)."""
         n, b = vecs.shape[0], vecs.shape[1]
 
         def split_conv_t(conv: nn.Module, d: torch.Tensor,
@@ -168,13 +169,13 @@ class Decoder(nn.Module):
                     + L.cast(conv.bias, dtype)[:, None, None])
 
         d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
-        y, st = self.head.train_forward(d, n, dtype)
+        y, st = self.head.train_forward(d, n, dtype, group)
         d = L.leaky_relu(y)
         stats = [st]
         for stage, sk in zip(self.stages, reversed(skips_u)):
             y, st = L.batch_norm_train(
                 split_conv_t(stage.conv, d, sk), L.cast(stage.bn.weight, dtype),
-                L.cast(stage.bn.bias, dtype), n)
+                L.cast(stage.bn.bias, dtype), n, group=group)
             d = L.leaky_relu(y)
             stats.append(st)
         y = split_conv_t(self.final, d, skips_u[0])

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dvg_tpu_torch.parallel.collectives import all_reduce_sum, world_size
+
 WEIGHT_STD = 0.02
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -87,18 +89,31 @@ def conv_apply(conv: nn.Module, x: torch.Tensor,
 
 
 def batch_norm_train(y: torch.Tensor, weight: torch.Tensor,
-                     bias: torch.Tensor, calls: int, eps: float = BN_EPS
-                     ) -> Tuple[torch.Tensor, BNStats]:
+                     bias: torch.Tensor, calls: int, eps: float = BN_EPS,
+                     group=None) -> Tuple[torch.Tensor, BNStats]:
     """Train-mode BatchNorm with per-call statistics: y (calls·b, C, H, W)
     holds `calls` batches of b, each normalized over its own (b, H, W) by
     its biased variance. The statistics and the affine run in at least f32
     and the output comes back in y's dtype, as `dvg_tpu`'s batchnorm_apply.
     Returns (out, (batch mean, unbiased variance)), both (calls, C),
-    detached, for the running-statistics fold; the buffers are left alone."""
+    detached, for the running-statistics fold; the buffers are left alone.
+
+    Under a process `group` (data parallel, every rank holding b rows of
+    each call) the statistics are the global batch's, in `dvg_tpu`'s
+    two-pass form: the mean all-reduced, then the mean of (y − μ)²
+    all-reduced, the unbiased count the global one. Both reductions are
+    differentiable all-reduces, so the backward is the global-batch BN's."""
     at = acc_dtype(y.dtype)
     y5 = y.unflatten(0, (calls, y.shape[0] // calls)).to(at)
-    var, mean = torch.var_mean(y5, dim=(1, 3, 4), correction=0)
     n = y5.shape[1] * y5.shape[3] * y5.shape[4]
+    if group is None:
+        var, mean = torch.var_mean(y5, dim=(1, 3, 4), correction=0)
+    else:
+        w = world_size(group)
+        mean = all_reduce_sum(y5.mean(dim=(1, 3, 4)), group) / w
+        var = all_reduce_sum(((y5 - mean[:, None, :, None, None]) ** 2
+                              ).mean(dim=(1, 3, 4)), group) / w
+        n *= w
     scale = torch.rsqrt(var + eps) * weight.to(at)
     out = ((y5 - mean[:, None, :, None, None]) * scale[:, None, :, None, None]
            + bias.to(at)[:, None, None])
@@ -126,13 +141,15 @@ class ConvBlock(nn.Module):
                             eps=BN_EPS)
 
     def train_forward(self, x: torch.Tensor, calls: int,
-                      dtype: Optional[torch.dtype] = None
+                      dtype: Optional[torch.dtype] = None, group=None
                       ) -> Tuple[torch.Tensor, BNStats]:
         """Conv, then train-mode BN over each of the `calls` batches of x,
-        every weight cast to `dtype` → (y, per-call statistics)."""
+        every weight cast to `dtype` → (y, per-call statistics), global
+        over `group`'s ranks under one."""
         return batch_norm_train(conv_apply(self.conv, x, dtype),
                                 cast(self.bn.weight, dtype),
-                                cast(self.bn.bias, dtype), calls)
+                                cast(self.bn.bias, dtype), calls,
+                                group=group)
 
 
 def conv_block(in_ch: int, out_ch: int, k: int, stride: int,

@@ -71,9 +71,9 @@ def _blocks_eval(blocks, h: torch.Tensor) -> torch.Tensor:
 
 
 def _blocks_train(blocks, h: torch.Tensor, calls: int, dtype,
-                  stats: List[L.BNStats]) -> torch.Tensor:
+                  stats: List[L.BNStats], group=None) -> torch.Tensor:
     for block in blocks:
-        y, st = block.train_forward(h, calls, dtype)
+        y, st = block.train_forward(h, calls, dtype, group)
         h = L.leaky_relu(y)
         stats.append(st)
     return h
@@ -98,20 +98,21 @@ class Encoder(nn.Module):
         return h.reshape(h.shape[0], -1), skips
 
     def train_forward(self, x: torch.Tensor, calls: int,
-                      dtype: Optional[torch.dtype] = None
+                      dtype: Optional[torch.dtype] = None, group=None
                       ) -> Tuple[torch.Tensor, List[torch.Tensor],
                                  List[L.BNStats]]:
         """Train-mode encode of x (calls·B, H, W, C), each of the `calls`
-        frames normalized by its own batch statistics, every weight cast to
-        `dtype` → (h (calls·B, dim), skips, per-block statistics (calls, C)
-        in the order of `bn_blocks()`)."""
+        frames normalized by its own batch statistics (global over
+        `group`'s ranks under one), every weight cast to `dtype` → (h
+        (calls·B, dim), skips, per-block statistics (calls, C) in the order
+        of `bn_blocks()`)."""
         h = L.nchw(L.cast(x, dtype))
         skips, stats = [], []
-        for i, group in enumerate(self.groups):
-            h = _blocks_train(group, L.max_pool2d(h) if i else h, calls,
-                              dtype, stats)
+        for i, blocks in enumerate(self.groups):
+            h = _blocks_train(blocks, L.max_pool2d(h) if i else h, calls,
+                              dtype, stats, group)
             skips.append(L.nhwc(h))
-        y, st = self.head.train_forward(L.max_pool2d(h), calls, dtype)
+        y, st = self.head.train_forward(L.max_pool2d(h), calls, dtype, group)
         stats.append(st)
         h = torch.tanh(y)
         return h.reshape(h.shape[0], -1), skips, stats
@@ -153,8 +154,8 @@ class Decoder(nn.Module):
         self.groups = _fold_groups(self.groups)
 
     def grouped(self, vecs: torch.Tensor, skips_u: List[torch.Tensor],
-                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None
-                ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+                group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                group=None) -> Tuple[torch.Tensor, List[L.BNStats]]:
         """Train-mode decode of N latent calls whose skips come from a few
         unique frames (`dvg_tpu`'s vgg.decoder_apply_grouped; the contract
         of dcgan.Decoder.grouped): vecs (N, B, dim), skips_u per encoder
@@ -169,12 +170,12 @@ class Decoder(nn.Module):
         of `bn_blocks()`)."""
         n, b = vecs.shape[0], vecs.shape[1]
         d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
-        y, st = self.head.train_forward(d, n, dtype)
+        y, st = self.head.train_forward(d, n, dtype, group)
         d = L.leaky_relu(y)
         stats = [st]
-        for group, sk in zip(self.groups, reversed(skips_u)):
+        for blocks, sk in zip(self.groups, reversed(skips_u)):
             up = L.upsample_nearest2d(d)
-            first = group[0]
+            first = blocks[0]
             w = L.cast(first.conv.weight, dtype)
             c_u = up.shape[1]
             s_out = L.nhwc(F.conv2d(L.nchw(L.cast(sk, dtype).flatten(0, 1)),
@@ -184,10 +185,11 @@ class Decoder(nn.Module):
                  + L.nchw(s_b.flatten(0, 1))
                  + L.cast(first.conv.bias, dtype)[:, None, None])
             y, st = L.batch_norm_train(y, L.cast(first.bn.weight, dtype),
-                                       L.cast(first.bn.bias, dtype), n)
+                                       L.cast(first.bn.bias, dtype), n,
+                                       group=group)
             d = L.leaky_relu(y)
             stats.append(st)
-            d = _blocks_train(group[1:], d, n, dtype, stats)
+            d = _blocks_train(blocks[1:], d, n, dtype, stats, group)
         y = L.conv_apply(self.final, d, dtype)
         return L.nhwc(torch.sigmoid(y)).unflatten(0, (n, b)), stats
 

@@ -107,6 +107,27 @@ class Optimizers:
         self.adam[group].step()
         self.counts[group] += 1
 
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every Adam step count and moment, in a fixed order, for a
+        broadcast from another rank (`parallel.broadcast_state`): a group
+        that has taken updates gets zero entries where it has none (a rank
+        that did not load the state), one that has not gets none."""
+        out = []
+        for g in MODULE_GROUPS:
+            opt = self.adam[g]
+            if self.counts[g] == 0:
+                opt.state.clear()
+                continue
+            for p in self.params(g):
+                st = opt.state[p]
+                if not st:
+                    st.update(step=torch.tensor(float(self.counts[g]),
+                                                dtype=torch.float32),
+                              exp_avg=torch.zeros_like(p),
+                              exp_avg_sq=torch.zeros_like(p))
+                out += [st["step"], st["exp_avg"], st["exp_avg_sq"]]
+        return out
+
     # -- dvg_tpu's optax layout ----------------------------------------------
     def _moments(self, model: nn.Module, key: str) -> Dict[str, torch.Tensor]:
         sd = dict(model.state_dict())

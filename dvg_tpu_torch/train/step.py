@@ -1,5 +1,6 @@
 """The port's DVG train step (counterpart of `dvg_tpu/train/step.py`):
-three gradient passes per batch, single device.
+three gradient passes per batch, on one device or data parallel over a
+process group (`make_train_step(cfg, group)`).
 
   * joint pass: teacher-forced over t = 1..T−1,
       loss = 1000·ae_mse + 0.001·mse + 0.01·mse_latent + 0.001·mse_gp
@@ -47,6 +48,7 @@ from dvg_tpu_torch.config import DVGConfig, compute_dtype
 from dvg_tpu_torch.models import gp as gp_mod
 from dvg_tpu_torch.models import layers as L
 from dvg_tpu_torch.models.dvg import DVGModel
+from dvg_tpu_torch.parallel.collectives import all_reduce_mean_, world_size
 from dvg_tpu_torch.train.optim import MODULE_GROUPS, Optimizers
 
 VARIANTS = 3      # decoded latents per step: LSTM prediction, target, GP mean
@@ -139,18 +141,18 @@ def make_plan(cfg: DVGConfig, seq_len: int, device) -> Plan:
                 enc_decay, dev(dec_w), dec_decay)
 
 
-def encode_frames(model: DVGModel, x: torch.Tensor, dtype, remat: bool
-                  ) -> Tuple[torch.Tensor, List[torch.Tensor],
-                             List[L.BNStats]]:
+def encode_frames(model: DVGModel, x: torch.Tensor, dtype, remat: bool,
+                  group=None) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                       List[L.BNStats]]:
     """All T frames of x (T, B, H, W, C) in one train-mode encode, each
-    frame normalized by its own batch statistics → (h (T, B, G), skips
-    (T, B, h, w, c) per stage, per-frame statistics (T, C) per block).
-    `remat` recomputes the encoder's activations in the backward instead of
-    keeping them."""
+    frame normalized by its own batch statistics (the global batch's under
+    a process `group`) → (h (T, B, G), skips (T, B, h, w, c) per stage,
+    per-frame statistics (T, C) per block). `remat` recomputes the
+    encoder's activations in the backward instead of keeping them."""
     t, b = x.shape[:2]
 
     def enc(flat):
-        return model.encoder.train_forward(flat, t, dtype)
+        return model.encoder.train_forward(flat, t, dtype, group)
 
     flat = x.flatten(0, 1)
     h, skips, stats = (checkpoint(enc, flat, use_reentrant=False) if remat
@@ -160,8 +162,8 @@ def encode_frames(model: DVGModel, x: torch.Tensor, dtype, remat: bool
 
 
 def decode_variants(model: DVGModel, latents: torch.Tensor,
-                    skips: List[torch.Tensor], plan: Plan, remat: bool
-                    ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+                    skips: List[torch.Tensor], plan: Plan, remat: bool,
+                    group=None) -> Tuple[torch.Tensor, List[L.BNStats]]:
     """Decode the (V, T−1, B, G) latent variants in one grouped train-mode
     decode (step i reads the skips of frame skip_index[i]) → (frames (V,
     T−1, B, H, W, C), per-call statistics (V·(T−1), C) per block, the calls
@@ -171,12 +173,18 @@ def decode_variants(model: DVGModel, latents: torch.Tensor,
 
     def dec(lat, *sk):
         return model.decoder.grouped(lat, list(sk), plan.group_idx,
-                                     plan.dtype)
+                                     plan.dtype, group)
 
     lat = latents.flatten(0, 1)
     frames, stats = (checkpoint(dec, lat, *skips_u, use_reentrant=False)
                      if remat else dec(lat, *skips_u))
     return frames.unflatten(0, (v, tm1)), stats
+
+
+def ranks(group) -> int:
+    """The ranks a step's batch is split over: 1 without a group (also in a
+    process where a default group is up), else the group's size."""
+    return 1 if group is None else world_size(group)
 
 
 def gp_pairs(h_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,27 +197,32 @@ def gp_pairs(h_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 # loss passes
 # ---------------------------------------------------------------------------
 
-def joint_loss(model: DVGModel, x: torch.Tensor, cfg: DVGConfig, plan: Plan
-               ) -> Tuple[torch.Tensor, Metrics, List[L.BNStats],
-                          List[L.BNStats]]:
+def joint_loss(model: DVGModel, x: torch.Tensor, cfg: DVGConfig, plan: Plan,
+               group=None) -> Tuple[torch.Tensor, Metrics, List[L.BNStats],
+                                    List[L.BNStats]]:
     """The joint pass's loss on x (T, B, H, W, C) in the params' dtype →
     (loss, metrics, per-frame encoder statistics, per-call decoder
-    statistics)."""
+    statistics). Under a process `group` x is this rank's rows of the
+    global batch: BN's statistics and the GP's num_data are the global
+    batch's, and the loss is this rank's, whose gradients the ranks
+    average (`make_train_step`)."""
     xc = L.cast(x, plan.dtype)
     seq_len, b = x.shape[:2]
     tm1 = seq_len - 1
-    h_all, skips, enc_stats = encode_frames(model, xc, plan.dtype, cfg.remat)
+    h_all, skips, enc_stats = encode_frames(model, xc, plan.dtype, cfg.remat,
+                                            group)
     h_pred = model.frame_predictor.teacher_forced(h_all[:-1], plan.dtype)
     h_target = h_all[1:]
 
     gx, gy = gp_pairs(L.f32up(h_all))
     post = gp_mod.posterior(model.gp, gx)
-    max_ll = -gp_mod.elbo(model.gp, model.likelihood, gx, gy, b, post).sum()
+    max_ll = -gp_mod.elbo(model.gp, model.likelihood, gx, gy,
+                          b * ranks(group), post).sum()
     gp_mean = post.mean.transpose(1, 2).to(h_pred.dtype)
 
     latents = torch.stack([h_pred, h_target, gp_mean])
     frames, dec_stats = decode_variants(model, latents, skips, plan,
-                                        cfg.remat)
+                                        cfg.remat, group)
     frames = L.f32up(frames)
     x_true = L.f32up(xc[1:])
     mse = torch.mean((frames[0] - x_true) ** 2) * tm1
@@ -227,14 +240,14 @@ def joint_loss(model: DVGModel, x: torch.Tensor, cfg: DVGConfig, plan: Plan
 
 
 @torch.no_grad()
-def finetune_encode(model: DVGModel, x: torch.Tensor, plan: Plan
-                    ) -> Tuple[torch.Tensor, List[L.BNStats]]:
+def finetune_encode(model: DVGModel, x: torch.Tensor, plan: Plan,
+                    group=None) -> Tuple[torch.Tensor, List[L.BNStats]]:
     """The one encode both finetune passes share: the encoder's parameters
     are the same for both (pass 2 steps only the LSTM, pass 3 only the GP
     group) and train-mode BN normalizes by batch statistics, so their
     latents are identical, and neither pass sends a gradient into them."""
     h_all, _, stats = encode_frames(model, L.cast(x, plan.dtype), plan.dtype,
-                                    remat=False)
+                                    remat=False, group=group)
     return h_all, stats
 
 
@@ -246,11 +259,13 @@ def lstm_finetune_loss(model: DVGModel, h_all: torch.Tensor, plan: Plan
         h_all.shape[0] - 1)
 
 
-def gp_finetune_loss(model: DVGModel, h_all: torch.Tensor) -> torch.Tensor:
-    """Σ_t −ELBO of the GP over fixed latents, num_data = B."""
+def gp_finetune_loss(model: DVGModel, h_all: torch.Tensor,
+                     num_data: Optional[int] = None) -> torch.Tensor:
+    """Σ_t −ELBO of the GP over fixed latents, num_data the batch (the
+    global batch under data parallelism)."""
     gx, gy = gp_pairs(L.f32up(h_all))
     return -gp_mod.elbo(model.gp, model.likelihood, gx, gy,
-                        h_all.shape[1]).sum()
+                        num_data or h_all.shape[1]).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +296,32 @@ def init_train_state(cfg: DVGConfig, device="cuda") -> TrainState:
     return train_state(DVGModel(cfg, seed=cfg.seed, device=device), cfg)
 
 
-def make_train_step(cfg: DVGConfig) -> Callable[
+def make_train_step(cfg: DVGConfig, group=None) -> Callable[
         [TrainState, torch.Tensor], Tuple[TrainState, Metrics]]:
     """step(state, x) → (state, metrics): the joint pass and, with cfg.ft,
     the two finetune passes on x (T, B, H, W, C), updating `state` in place
     and leaving the metrics on the device (reading one waits for the
-    step)."""
+    step).
+
+    Data parallel under a process `group` (`dvg_tpu`'s make_train_step
+    with a mesh): x is this rank's B/W rows of the global batch, BN's
+    statistics and the GP's num_data are the global batch's, each optimizer
+    group's gradients are averaged over the ranks in one flat all-reduce
+    before its update, and the metrics are the ranks' mean. Every rank
+    ends the step with the same weights, BN statistics and Adam state: the
+    step of one rank on the global batch."""
     plans: Dict[Tuple[int, torch.device], Plan] = {}
+    sync = group is not None
+
+    def mean_grads(opts: Optimizers, g: str) -> None:
+        """Average group g's gradients over the ranks (a parameter the pass
+        did not reach takes a zero gradient first, as Optimizers.step
+        would give it)."""
+        params = opts.params(g)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_mean_([p.grad for p in params], group)
 
     def step_fn(state: TrainState, x) -> Tuple[TrainState, Metrics]:
         model, opts = state.model, state.opts
@@ -300,31 +334,41 @@ def make_train_step(cfg: DVGConfig) -> Callable[
 
         # ---- pass 1: joint ------------------------------------------------
         opts.zero_grad()
-        loss, metrics, enc_stats, dec_stats = joint_loss(model, x, cfg, plan)
+        loss, metrics, enc_stats, dec_stats = joint_loss(model, x, cfg, plan,
+                                                         group)
         loss.backward()
         fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
         fold_stats(model.decoder.bn_blocks(), dec_stats, plan.dec_w,
                    plan.dec_decay)
         for g in MODULE_GROUPS:
+            if sync:
+                mean_grads(opts, g)
             opts.step(g)
 
         if cfg.ft:
-            h_all, enc_stats = finetune_encode(model, x, plan)
+            h_all, enc_stats = finetune_encode(model, x, plan, group)
             # ---- pass 2: LSTM only ----------------------------------------
             opts.zero_grad("frame_predictor")
             ft_latent = lstm_finetune_loss(model, h_all, plan)
             ft_latent.backward()
             fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
+            if sync:
+                mean_grads(opts, "frame_predictor")
             opts.step("frame_predictor")
             # ---- pass 3: GP only; the reference re-encodes here, so the
             # shared encode's statistics fold a second time ---------------
             opts.zero_grad("gp_group")
-            ft_gp = gp_finetune_loss(model, h_all)
+            ft_gp = gp_finetune_loss(model, h_all,
+                                     x.shape[1] * ranks(group))
             ft_gp.backward()
             fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
+            if sync:
+                mean_grads(opts, "gp_group")
             opts.step("gp_group")
             metrics.update(ft_mse_latent=ft_latent.detach(),
                            ft_gp_nll=ft_gp.detach())
+        if sync:
+            all_reduce_mean_(list(metrics.values()), group)
         state.step += 1
         return state, metrics
 

@@ -15,6 +15,7 @@
 Captions use a 5×7 bitmap font (6-px advance, 9-px line) kept here, so
 their pixels differ from Pillow's default font; every other pixel equals
 the JAX package's. Images are float arrays in [0, 1], (H, W, C) or (H, W).
+In a distributed run only the coordinator writes files.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import List, Sequence
 
 import numpy as np
 
+from dvg_tpu_torch.parallel.mesh import is_coordinator
 from dvg_tpu_torch.utils._codecs import encode_gif, encode_png
 
 # 5×7 glyphs, 7 rows of 5 bits (most significant bit leftmost) per glyph,
@@ -142,6 +144,11 @@ def _to_uint8(img: np.ndarray) -> np.ndarray:
 
 
 def _write(path: str, data: bytes) -> None:
+    """Write `data` to `path` on the coordinator only (`parallel.
+    is_coordinator`), so the ranks of a distributed run never race on one
+    file."""
+    if not is_coordinator():
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)

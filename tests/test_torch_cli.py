@@ -6,7 +6,8 @@ default, --finn, --no_pallas, --full_cov and --gp_trigger_flag runs; the
 npz equal to the port's own `diverse_metrics(seed=1000·seed + batch)`; the
 GIF's ground-truth and posterior columns, before encoding, against
 `dvg_tpu`'s `add_border` of `dvg_tpu`'s posterior on the same batch (atol
-1e-4); a --trace_dir trace; the --mesh_samples refusal; no hidden device;
+1e-4); a --trace_dir trace; the refusal of mesh flags one process cannot
+serve; no hidden device;
 and a whole run with PIL and imageio unimportable."""
 
 import glob
@@ -194,9 +195,14 @@ def test_gp_trigger_path(ckpt, tmp_path, monkeypatch):
 
 
 def test_mesh_flags_refused(ckpt):
+    """Mesh flags that one process cannot serve are refused, naming the
+    fix: --mesh_samples 2 needs two processes (launched by torchrun or the
+    DVG_* env; tests/test_torch_dist_cli.py runs them), and --mesh_data
+    without --mesh_samples would be ignored."""
     root = ckpt[0]
-    for extra in (["--mesh_samples", "2"], ["--mesh_data", "2"]):
-        with pytest.raises(SystemExit, match="item 14"):
+    for extra, why in ((["--mesh_samples", "2"], "torchrun"),
+                       (["--mesh_data", "2"], "requires --mesh_samples")):
+        with pytest.raises(SystemExit, match=why):
             gen_cli.main(cli_args(root / "run", root / "mesh", *extra))
 
 

@@ -15,7 +15,9 @@ step as chip_smoke.py's `phase_train_tiny` holds it; a TrainState written
 and read back on the card; a tiny reference-schema `.pth` imported and
 run (f32 posterior) on the card against the same file on the CPU and
 against the reference's loop over the unpickled modules, frames atol
-1e-4."""
+1e-4; the parallel layer on the card (chip_smoke.py's [dist] jobs): NCCL
+at world size 1, and two gloo ranks sharing the card for the sharded
+eval."""
 
 import numpy as np
 import pytest
@@ -325,3 +327,40 @@ def test_reference_import_card_matches_cpu(cuda, tmp_path):
     assert card.shape == x.shape and bool(torch.isfinite(card).all())
     assert (card - cpu).abs().max() <= 1e-4
     assert (card - ref).abs().max() <= 1e-4
+
+
+def test_world1_nccl_step_and_sharded_eval(cuda, tmp_path):
+    """chip_smoke.py's [dist] (a) as a test: NCCL at world size 1 on the
+    card, the tiny f64 step through the group path against the same step
+    without a group (metrics and gradients 1e-12, post-step state 1e-9),
+    and the ("sample", 1)-sharded tiny eval equal to the plain call, K1
+    launched once per free step."""
+    import chip_smoke
+    torch.save(chip_smoke.dist_spec(), tmp_path / "dist_spec.pt")
+    (res,) = chip_smoke.dist_spawn(tmp_path, "nccl1", 1)
+    assert res["backend"] == "nccl"
+    assert max(res["step_errors"].values()) <= 0, res["step_errors"]
+    assert res["eval_errs"][3] <= 1e-12
+    tiny = chip_smoke.DIST_TINY_EVAL
+    assert res["launches"] == tiny["n_eval"] - tiny["n_past"]
+
+
+def test_two_gloo_ranks_share_the_card_for_the_sharded_eval(cuda, tmp_path):
+    """Two ranks on the one card over gloo, CUDA tensors: the ("sample",
+    2)-sharded tiny f32 eval gathers the one-process eval on every rank
+    (SSIM 1e-5, PSNR 1e-3 dB, MSE rtol 1e-5), K1 launched once per free
+    step on each rank; without a data axis full_cov stays legal."""
+    import chip_smoke
+    spec = chip_smoke.dist_spec()
+    torch.save(spec, tmp_path / "dist_spec.pt")
+    ranks = chip_smoke.dist_spawn(tmp_path, "tiny_eval", 2)
+    tiny = chip_smoke.DIST_TINY_EVAL
+    ref = chip_smoke._tiny_eval_fns(spec, tiny["nsample"]).diverse_metrics(
+        spec["x_eval"], seed=chip_smoke.DIST_TINY_SEED, device="cuda")
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["guard"] == "no error"
+        assert r["launches"] == tiny["n_eval"] - tiny["n_past"]
+        errs = chip_smoke.max_errs(
+            [r["metrics"][k] for k in chip_smoke.METRICS],
+            [ref[k].cpu() for k in chip_smoke.METRICS])
+        assert chip_smoke.within(errs, chip_smoke.DIST_F32_TOL), errs

@@ -317,6 +317,8 @@ def test_package_imports_no_jax_and_nothing_of_dvg_tpu():
         import dvg_tpu_torch.train, dvg_tpu_torch.cli.train
         import dvg_tpu_torch.train.import_torch, dvg_tpu_torch.data.convert
         import dvg_tpu_torch.runtime.fastload
+        import dvg_tpu_torch.parallel, dvg_tpu_torch.parallel.dryrun
+        import dvg_tpu_torch.cli.generate
         cfg = DVGConfig(channels=3, batch_size=2, n_past=2, n_eval=17,
                         g_dim=16, rnn_size=64, num_inducing_points=8,
                         nsample=2, use_pallas=True)

@@ -4,7 +4,8 @@ procedural Moving-MNIST digits: the files and epoch records a run writes;
 a checkpoint that `dvg_tpu` resumes from (its TrainState layout) and that
 the port's eval CLI scores; --resume continuing the same batch stream, so
 that 2 epochs + a resumed third equal 3 epochs in one run, bit for bit;
---trace_dir; the --mesh refusal; and no hidden device.
+--trace_dir; the refusal of --mesh 2 in one process; and no hidden
+device.
 
 --resume under changed settings: one TrainState resumed by each package's
 CLI with --lr and --no_ft changed from the file's. `dvg_tpu` builds its
@@ -143,7 +144,9 @@ def test_trace_dir(tmp_path):
 
 
 def test_mesh_refused(tmp_path):
-    with pytest.raises(SystemExit, match="item 14"):
+    """--mesh 2 in one process is refused, naming the launch it needs
+    (tests/test_torch_dist_cli.py runs it on two)."""
+    with pytest.raises(SystemExit, match="torchrun --nproc_per_node 2"):
         train_cli.main(train_args(tmp_path, "--mesh", "2"))
 
 
