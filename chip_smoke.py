@@ -120,7 +120,28 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      re-scored by K2 against the npz; (c) four ranks over gloo: the
      ("sample", 2) × ("data", 2) tiny eval against one process and the
      full_cov guard. Two ranks sharing one card are no speedup: the times
-     show the gloo hops' cost.
+     show the gloo hops' cost;
+ 15. [serve] the serving export (`dvg_tpu_torch.serve`): the phase-4
+     checkpoint's diverse_metrics and posterior, and gp_trigger of the
+     headline model at unit gain with a trained-looking GP (on the init
+     law's weights the GP's variance hardly moves), exported by the CLI
+     `python -m dvg_tpu_torch.serve.export` at the headline geometry
+     (bf16, K1; export seconds and MB of each), beside them in f32 at a
+     cut depth (n_eval 20, a fork at step 15) the ("sample", 2) per-rank
+     diverse_metrics artifact, the four exports side by side. One fresh
+     process loads the three bf16 artifacts as their exports end (load
+     seconds; it imports nothing of `models/`, `generate/` or JAX); the
+     sharded artifact runs on two gloo ranks sharing the card; then a
+     fresh process calls the live entries, and after it the artifacts'
+     process calls the artifacts, both with cuDNN's autotuner off: ms per
+     call by CUDA events over SERVE_REPS calls after a warm-up, K1's and
+     K2's counts set to 0 just before and read just after. Gates: K1 100
+     launches per call from inside the diverse_metrics artifact (its µs
+     per launch there), K2 none; bf16 diverse_metrics within
+     SERVE_BF16_TOL of the live entry, posterior's and gp_trigger's
+     frames within SERVE_BF16_FRAME_ATOL, gp_trigger's decisions all
+     equal; the sharded f32 artifact within SERVE_F32_TOL of the live
+     entry.
 Each phase prints its seconds. Then one JSON line describing every kernel
 of the port, and last the device line.
 
@@ -261,6 +282,25 @@ DIST_BF16_TOL = dict(CLI_TOL["bfloat16"], mse_rtol=float("inf"))
 DIST_EPOCH = 5            # steps per epoch of the --mesh 2 training CLI
 DIST_CLI_BATCHES = 1      # batches of the --mesh_samples 2 eval CLI
 DIST_TIMEOUT_S = 600
+
+# [serve] (phase 15): the artifacts' entries in the order they are loaded
+# and timed; the cut depth of the f32 check (n_past 5: steps 5..19, a fork
+# at 15), whose band is [dist]'s sharded-against-one-process one. Both sides
+# run with cuDNN's autotuner off, so a fresh process takes the same kernels
+# as the other: with it on, another kernel's last bf16 bit grew into
+# another gp_trigger trajectory at unit gain. The bf16 bands hold the
+# measured readings with margin (PERF.md §5: with the autotuner on,
+# diverse_metrics within 3.4e-7 SSIM, 7.6e-6 dB and 1.7e-6 relative MSE
+# of the live entry, posterior's frames 2.4e-4; with it off, gp_trigger's
+# frames bit-equal): frames within one bf16 ulp in [0.5, 1)
+SERVE_ENTRIES = ("diverse_metrics", "posterior", "gp_trigger")
+SERVE_CUT = 20
+SERVE_TRIGGER_SEED = 5
+SERVE_F32_TOL = DIST_F32_TOL
+SERVE_BF16_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-5)
+SERVE_BF16_FRAME_ATOL = 2.0 ** -8
+SERVE_TIMEOUT_S = 600
+SERVE_REPS = 3            # timed calls per entry and side
 
 
 class SmokeFailure(RuntimeError):
@@ -2617,6 +2657,294 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
     check(all("full_cov" in r["guard"] for r in c4), "(c) full_cov guard")
     return dict(k1=[r["bfloat16"][2] for r in b2], k2=k2)
 
+def _serve_job(rank, n, tmp):
+    """Phase 15's sharded check: this rank's block of the ("sample", 2)
+    artifact, gathered on every rank."""
+    import torch
+    from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+    from dvg_tpu_torch.serve import load_serving
+    _f32_exact()
+    torch.backends.cudnn.benchmark = False
+    served = load_serving(str(tmp / "sharded.pt2"))
+    x = torch.load(tmp / "x_cut.pt")
+    ssim_psnr_batch_cyclic.launches = 0
+    out = served(x, MAIN_SEED)
+    torch.cuda.synchronize()
+    return dict(metrics={k: v.cpu() for k, v in out.items()},
+                launches=ssim_psnr_batch_cyclic.launches,
+                modules=_model_modules())
+
+
+DIST_JOBS["serve2"] = _serve_job
+
+
+def _model_modules() -> list:
+    """The modules of the port's model and generation code, and of JAX,
+    that this process imported."""
+    return sorted(m for m in sys.modules if m.split(".")[0] == "jax" or
+                  m.startswith(("dvg_tpu_torch.models",
+                                "dvg_tpu_torch.generate", "dvg_tpu.")))
+
+
+def _cpu(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return type(tree)(_cpu(v) for v in tree)
+
+
+def _entry_call(fn, entry: str, x):
+    """One call of an entry (artifact or live) on the clip x: posterior
+    takes no seed."""
+    if entry == "posterior":
+        return lambda: fn(x)
+    seed = SERVE_TRIGGER_SEED if entry == "gp_trigger" else MAIN_SEED
+    return lambda: fn(x, seed=seed)
+
+
+def _serve_calls(call) -> dict:
+    """A warm-up call, SERVE_REPS calls timed by CUDA events with K1's and
+    K2's counts set to 0 just before and read just after, then one call
+    profiled → the output, ms per call, K1's launches per call, K2's in
+    all, K1's µs per launch and the card's busy share."""
+    import torch
+    from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
+                                             ssim_psnr_batch_images)
+    call()
+    ssim_psnr_batch_cyclic.launches = ssim_psnr_batch_images.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(SERVE_REPS):
+        out = call()
+    end.record()
+    torch.cuda.synchronize()
+    k1, k2 = ssim_psnr_batch_cyclic.launches, ssim_psnr_batch_images.launches
+    kernels, busy, span = device_kernels(call)
+    us = [e.time_range.elapsed_us() for e in kernels
+          if "ssim_kernel" in e.name]
+    return dict(out=_cpu(out), ms=start.elapsed_time(end) / SERVE_REPS,
+                k1=k1 / SERVE_REPS, k2=k2, k1_us=sum(us) / max(len(us), 1),
+                busy=busy / span)
+
+
+def _await(path: Path) -> None:
+    while not path.exists():
+        time.sleep(0.2)
+
+
+def _serve_artifacts(tmp: str) -> None:
+    """Phase 15's artifact side, in a fresh process with nothing of the
+    model or generation code: loads each entry's artifact once its export
+    has written the sidecar (which comes last), timing each load; then,
+    once the live side has saved its results (so no two timings overlap),
+    calls each through _serve_calls. Saves tmp/artifacts.pt."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    tmp = Path(tmp)
+    torch.backends.cudnn.benchmark = False
+    from dvg_tpu_torch.serve import load_serving
+    x = torch.load(tmp / "x.pt").to(CARD)
+    fns, load_s = {}, {}
+    for e in SERVE_ENTRIES:
+        _await(tmp / f"{e}.pt2.json")
+        t0 = time.perf_counter()
+        fns[e] = load_serving(str(tmp / f"{e}.pt2"))
+        load_s[e] = time.perf_counter() - t0
+    modules = _model_modules()
+    _await(tmp / "live.pt")
+    torch.save(dict(load_s=load_s, modules=modules, calls={
+        e: _serve_calls(_entry_call(fns[e], e, x)) for e in SERVE_ENTRIES}),
+        tmp / "artifacts.pt")
+
+
+def _serve_live(tmp: str, ckpt: str, trig_ckpt: str) -> None:
+    """Phase 15's live side, in a fresh process: each entry of
+    make_rollout_fns on its checkpoint through _serve_calls, then in f32
+    at the cut depth the diverse_metrics that the sharded artifact is held
+    to. Saves tmp/live.pt."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    tmp = Path(tmp)
+    torch.backends.cudnn.benchmark = False
+    from dvg_tpu_torch.checkpoint import load_model
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    x = torch.load(tmp / "x.pt").to(CARD)
+    calls = {}
+    for e in SERVE_ENTRIES:
+        saved, model = load_model(trig_ckpt if e == "gp_trigger" else ckpt,
+                                  device=CARD)
+        calls[e] = _serve_calls(_entry_call(
+            getattr(make_rollout_fns(model, saved), e), e, x))
+    _f32_exact()
+    saved, model = load_model(ckpt, device=CARD)
+    fns = make_rollout_fns(model, saved.replace(
+        dtype="float32", n_eval=SERVE_CUT, n_future=SERVE_CUT - saved.n_past))
+    f32 = fns.diverse_metrics(torch.load(tmp / "x_cut.pt").to(CARD),
+                              seed=MAIN_SEED)
+    torch.save(dict(calls=calls, f32=_cpu(f32)), tmp / "live.pt")
+
+
+def _serve_start(command: list, log: Path):
+    """command started from the repo's root, its console to log, one
+    thread each (the processes outnumber the cores)."""
+    import os
+    with log.open("w") as f:
+        return subprocess.Popen(command, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+
+
+def _serve_wait(procs: dict, names, tmp: Path, deadline: float) -> None:
+    """Until each process in `names` has exited 0. Any process of `procs`
+    that fails, or the deadline passing, fails the phase with the end of
+    its log."""
+    while not all(procs[n].poll() == 0 for n in names):
+        for name, p in procs.items():
+            check(p.poll() in (None, 0), f"[serve] {name} failed (rc "
+                  f"{p.poll()}):\n" + "\n".join(
+                      (tmp / f"{name}.log").read_text().splitlines()[-30:]))
+        check(time.monotonic() < deadline,
+              f"[serve] {names} still running after {SERVE_TIMEOUT_S} s")
+        time.sleep(0.2)
+
+
+def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
+    """Phase 15 (module docstring). `x_main` is the main path's clip
+    (phase 7), on the CPU. → K1's launches inside the diverse_metrics
+    artifact's call and its µs per launch there; K2's launches per call of
+    the three artifacts."""
+    import torch
+    from dvg_tpu_torch.checkpoint import save_checkpoint
+    from dvg_tpu_torch.config import DVGConfig
+    tmp = Path(tmp) / "serve"
+    tmp.mkdir()
+    for name, v in (("x", x_main), ("x_cut", x_main[:SERVE_CUT])):
+        torch.save(v.contiguous(), tmp / f"{name}.pt")
+    # gp_trigger on unit-gain weights with a trained-looking GP: on the
+    # init law's weights the GP's variance hardly moves, and every
+    # decision sits on its threshold
+    cfg = DVGConfig(**HEADLINE)
+    trig_ckpt = save_checkpoint(str(tmp / "trigger_model"), cfg,
+                                with_trained_gp(unit_gain_model(cfg, "cpu"),
+                                                seed=3))
+    sources = {"diverse_metrics": ckpt, "posterior": ckpt,
+               "gp_trigger": trig_ckpt}
+    python = sys.executable
+    jobs = {e: [sources[e], str(tmp / f"{e}.pt2"), "--entry", e]
+            for e in SERVE_ENTRIES}
+    jobs["sharded"] = [ckpt, str(tmp / "sharded.pt2"), "--entry",
+                       "diverse_metrics", "--mesh_samples", "2", "--dtype",
+                       "float32", "--n_eval", str(SERVE_CUT)]
+    procs = {}
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    t0 = time.perf_counter()
+    try:
+        for j, args in jobs.items():
+            procs[f"export_{j}"] = _serve_start(
+                [python, "-m", "dvg_tpu_torch.serve.export"] + args,
+                tmp / f"export_{j}.log")
+        procs["artifacts"] = _serve_start(
+            [python, "-c", "import chip_smoke as S; "
+             f"S._serve_artifacts({str(tmp)!r})"], tmp / "artifacts.log")
+        _serve_wait(procs, ["export_sharded"], tmp, deadline)
+        ranks = dist_spawn(tmp, "serve2", 2)
+        _serve_wait(procs, [f"export_{e}" for e in SERVE_ENTRIES], tmp,
+                    deadline)
+        procs["live"] = _serve_start(
+            [python, "-c", "import chip_smoke as S; "
+             f"S._serve_live({str(tmp)!r}, {ckpt!r}, {trig_ckpt!r})"],
+            tmp / "live.log")
+        _serve_wait(procs, list(procs), tmp, deadline)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    art = torch.load(tmp / "artifacts.pt", weights_only=False)
+    live = torch.load(tmp / "live.pt", weights_only=False)
+    for j in jobs:
+        line = [ln for ln in (tmp / f"export_{j}.log").read_text(
+        ).splitlines() if ln.startswith("wrote ")][-1]
+        side = json.loads(Path(jobs[j][1] + ".json").read_text())
+        print(f"[serve] export {j}: {line.split(' ', 2)[2]} ({CARD_LINE}'s "
+              f"host); program inputs {side['in_shapes']}, platforms "
+              f"{side['platforms']}")
+    print(f"[serve] one fresh process loads the three artifacts: "
+          + ", ".join(f"{e} {s:.1f} s" for e, s in art["load_s"].items())
+          + f" ({CARD_LINE}'s host); model, generation or JAX modules "
+          f"imported: {art['modules'] or 'none'}")
+    check(not art["modules"], f"[serve] the artifacts' process imported "
+          f"{art['modules']}")
+    print(f"[serve] the four exports side by side, the artifacts loaded as "
+          f"their exports end, the sharded artifact on 2 ranks, then the "
+          f"live side and the timings: {wall:.1f} s wall")
+
+    s_n, b, n_free = cfg.nsample, cfg.batch_size, cfg.n_eval - cfg.n_past
+    got, ref = art["calls"], live["calls"]
+    dm = got["diverse_metrics"]
+    e16 = max_errs(_metrics_list(dm["out"]),
+                   _metrics_list(ref["diverse_metrics"]["out"]))
+    post = (got["posterior"]["out"]
+            - ref["posterior"]["out"]).abs().max().item()
+    trig, trig_ref = got["gp_trigger"]["out"], ref["gp_trigger"]["out"]
+    trig_frames = (trig[0] - trig_ref[0]).abs().max().item()
+    same = torch.equal(trig[1]["triggers"], trig_ref[1]["triggers"])
+    fired = int(trig_ref[1]["triggers"].sum())
+    k2 = sum(got[e]["k2"] for e in SERVE_ENTRIES)
+    print(f"[serve] DCGAN-64 bf16 S {s_n} B {b} n_eval {cfg.n_eval}, "
+          f"cudnn.benchmark off on both sides, {CARD_LINE}: diverse_metrics "
+          f"artifact K1 launches {dm['k1']:g} per call, K1 "
+          f"{dm['k1_us']:.1f} us per launch inside the artifact "
+          f"({ref['diverse_metrics']['k1_us']:.1f} live), device busy "
+          f"{dm['busy']:.1%}; K2 launches in the three artifacts' timed "
+          f"calls {k2}; vs the live entry max|dssim| {e16[0]:.3e} "
+          f"max|dpsnr| {e16[1]:.3e} dB mse rel {e16[2]:.3e} (band "
+          f"{SERVE_BF16_TOL}); posterior frames max|d| {post:.3e}, "
+          f"gp_trigger (unit gain, trained-looking GP) frames max|d| "
+          f"{trig_frames:.3e} (band {SERVE_BF16_FRAME_ATOL:.3e}), "
+          f"{fired} of {trig_ref[1]['triggers'].numel()} decisions fire "
+          f"live, all equal {same}")
+    for e in SERVE_ENTRIES:
+        a_ms, l_ms = got[e]["ms"], ref[e]["ms"]
+        print(f"[serve] {e}: artifact {a_ms:.1f} ms per call, live "
+              f"{l_ms:.1f} ms (each side in its own fresh process, CUDA "
+              f"events over {SERVE_REPS} calls after a warm-up, "
+              f"{CARD_LINE}); artifact {a_ms / l_ms - 1:+.1%}; device busy "
+              f"{got[e]['busy']:.1%} / {ref[e]['busy']:.1%}")
+    check(dm["k1"] == n_free,
+          f"the artifact launched K1 {dm['k1']} times per call, not {n_free}")
+    check(got["posterior"]["k1"] == got["gp_trigger"]["k1"] == 0,
+          "the posterior or gp_trigger artifact launched K1")
+    check(k2 == 0, f"the artifacts launched K2 {k2} times")
+    check(within(e16, SERVE_BF16_TOL), f"bf16 artifact vs live: {e16}")
+    check(post <= SERVE_BF16_FRAME_ATOL, f"posterior artifact vs live {post}")
+    check(trig_frames <= SERVE_BF16_FRAME_ATOL,
+          f"gp_trigger artifact's frames vs live {trig_frames}")
+    check(same, "gp_trigger artifact decisions differ from the live run's")
+    check(fired > 0, "no gp_trigger decision fires")
+    check(tuple(trig[0].shape) == (cfg.n_eval, b) + tuple(x_main.shape[2:])
+          and bool(torch.isfinite(trig[0]).all()), "gp_trigger frames")
+
+    # f32 at the cut depth: the sharded artifact against the live entry
+    e_shard = max(max_errs(_metrics_list(r["metrics"]),
+                           _metrics_list(live["f32"])) for r in ranks)
+    cut_free = SERVE_CUT - cfg.n_past
+    print(f"[serve] f32 n_eval {SERVE_CUT}: ('sample', 2) artifact on 2 gloo "
+          f"ranks sharing the card vs the live entry in one process "
+          f"max|dssim| {e_shard[0]:.3e} max|dpsnr| {e_shard[1]:.3e} dB mse "
+          f"rel {e_shard[2]:.3e} (tol {SERVE_F32_TOL}); K1 launches per rank "
+          f"{[r['launches'] for r in ranks]}, modules imported "
+          f"{[r['modules'] or 'none' for r in ranks]}")
+    check(within(e_shard, SERVE_F32_TOL), f"sharded vs live {e_shard}")
+    check(all(r["launches"] == cut_free for r in ranks),
+          "sharded K1 launches per rank")
+    check(not any(r["modules"] for r in ranks), "a rank imported model code")
+    return dict(k1=int(dm["k1"]), k1_us=dm["k1_us"], k2=k2 // SERVE_REPS)
+
 
 def main() -> int:
     import torch
@@ -2665,6 +2993,9 @@ def main() -> int:
             timed("import", phase_import, tmp)
             dist = timed("dist", phase_dist, tmp, ckpt, x_main, out_main)
             k1["dist_launches"], k2["dist_launches"] = dist["k1"], dist["k2"]
+            serve = timed("serve", phase_serve, tmp, ckpt, x_main)
+            k1["serve_launches"], k2["serve_launches"] = serve["k1"], \
+                serve["k2"]
         print(f"[backbones] {CARD_LINE}: " + "; ".join(
             f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
             f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"
@@ -2683,7 +3014,8 @@ def main() -> int:
                     launches=k["launches"], max_abs_err=k["max_abs_err"],
                     ms=k["ms"], plain_ms=k["plain_ms"],
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                    library_ms=None, dist_launches=k["dist_launches"])
+                    library_ms=None, dist_launches=k["dist_launches"],
+                    serve_launches=k["serve_launches"])
                for name, replaces, k in (
                    ("ssim_cyclic", "dvg_tpu/ops/pallas_ssim.py:187", k1),
                    ("ssim_images", "dvg_tpu/ops/pallas_ssim.py:153", k2))]

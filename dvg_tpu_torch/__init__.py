@@ -25,7 +25,12 @@ native frame decoder (`runtime/fastload.py`, libpng/libjpeg, built at
 first use where those are installed), and distribution over
 `torch.distributed` (`parallel/`: data-parallel training with global-batch
 BatchNorm, the sample- and (sample, data)-sharded diverse eval, both
-CLIs' mesh flags, coordinator-only writes).
+CLIs' mesh flags, coordinator-only writes), serving export (`serve/`:
+`torch.export` artifacts of posterior, diverse_metrics and gp_trigger, K1
+and K2 as custom ops, sharded artifacts; `python -m
+dvg_tpu_torch.serve.export`), and the modules no path calls: the gru, rnn
+and gaussian_lstm predictors, VGG's Gaussian encoder and the classifiers
+(`models/classifiers.py`). The port does all that `dvg_tpu` does.
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,11 @@ The backbones' trees map by name, whichever of the four it is: DCGAN's
 and the decoder's bare `final` conv. The decoder's head, DCGAN's decoder
 stages and both finals are transposed convs; VGG's decoder groups are
 plain convs (`TRANSPOSED`).
+The modules off the model's path map from their `dvg_tpu` trees too:
+`predictor_from_jax` (lstm, gru, rnn and gaussian_lstm predictors),
+`gaussian_encoder_from_jax` (VGG's Gaussian encoder) and
+`classifier_from_jax` (CNNBlockFrame/3: Conv3d DHWIO → (O, I, kd, kh, kw),
+BatchNorm3d; MLP/MLP2).
 Leaves may be numpy arrays or anything `np.asarray` takes. Values are f32,
 or f64 where they come in as f64 (the f64 parity tests). Every map is an
 exact permutation or flip, so a round trip is bit-exact.
@@ -23,7 +28,7 @@ exact permutation or flip, so a round trip is bit-exact.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +100,80 @@ def _check_backbone(params: Dict, cfg: DVGConfig) -> None:
             f"image_width={cfg.image_width} has {want} {parts}")
 
 
+def _linear(out: Dict, prefix: str, p: Dict) -> None:
+    out[f"{prefix}.weight"] = _t(np.asarray(p["w"]).T)
+    out[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _backbone(out: Dict, prefix: str, part: str, params: Dict,
+              stats: Dict) -> None:
+    """The conv blocks and bare convs of an encoder or decoder (`part`)
+    tree, under `prefix`."""
+    for path, p in _convs(params):
+        name = ".".join(map(str, (prefix,) + path))
+        conv = (conv_transpose_weight if (part, path[0]) in TRANSPOSED
+                else conv_weight)
+        if "conv" in p:
+            _block(out, name, p, _at(stats, path), conv)
+        else:
+            out[f"{name}.weight"] = conv(p["w"])
+            out[f"{name}.bias"] = _t(p["b"])
+
+
+def predictor_from_jax(params: Dict, prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """A `dvg_tpu` predictor's params (lstm, gru, rnn or gaussian_lstm) →
+    the state_dict of the port's module (`models/rnn.py`), keys under
+    `prefix`: its Linears (embed, and output or mu and logvar) transposed,
+    each cell's fused (in, k·H) weights as torch's (k·H, in), the gates in
+    the same order in both."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name != "cells":
+            _linear(out, prefix + name, p)
+            continue
+        for i, cell in enumerate(p):
+            for k in ("w_ih", "w_hh"):
+                out[f"{prefix}cells.{i}.weight_{k[2:]}"] = _t(
+                    np.asarray(cell[k]).T)
+            for k in ("b_ih", "b_hh"):
+                out[f"{prefix}cells.{i}.bias_{k[2:]}"] = _t(cell[k])
+    return out
+
+
+def gaussian_encoder_from_jax(params: Dict, stats: Dict
+                              ) -> Dict[str, torch.Tensor]:
+    """`dvg_tpu`'s gaussian_encoder (params, stats) → the state_dict of
+    `models.vgg.GaussianEncoder`."""
+    out: Dict[str, torch.Tensor] = {}
+    _backbone(out, "trunk", "encoder", params["trunk"], stats["trunk"])
+    for name in ("mu", "logvar"):
+        _linear(out, name, params[name])
+    return out
+
+
+def classifier_from_jax(params: Dict, stats: Optional[Dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """A `dvg_tpu` classifier's (params, stats) → the state_dict of
+    `models.classifiers`' CNNBlockFrame/3 or MLP/MLP2 (MLPs have no
+    stats)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if "scale" in p:
+            out[f"{name}.weight"] = _t(p["scale"])
+            out[f"{name}.bias"] = _t(p["bias"])
+            out[f"{name}.running_mean"] = _t(stats[name]["mean"])
+            out[f"{name}.running_var"] = _t(stats[name]["var"])
+            out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+        elif np.ndim(p["w"]) == 5:
+            out[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(
+                4, 3, 0, 1, 2))
+            out[f"{name}.bias"] = _t(p["b"])
+        else:
+            _linear(out, name, p)
+    return out
+
+
 def params_from_jax(params: Dict, stats: Dict, cfg: DVGConfig
                     ) -> Dict[str, torch.Tensor]:
     """dvg_tpu `(params, stats)` of an `lstm` model with any of the four
@@ -104,27 +183,9 @@ def params_from_jax(params: Dict, stats: Dict, cfg: DVGConfig
     _check_backbone(params, cfg)
     out: Dict[str, torch.Tensor] = {}
     for part in ("encoder", "decoder"):
-        for path, p in _convs(params[part]):
-            prefix = ".".join(map(str, (part,) + path))
-            conv = (conv_transpose_weight if (part, path[0]) in TRANSPOSED
-                    else conv_weight)
-            if "conv" in p:
-                _block(out, prefix, p, _at(stats[part], path), conv)
-            else:
-                out[f"{prefix}.weight"] = conv(p["w"])
-                out[f"{prefix}.bias"] = _t(p["b"])
-
-    fp = params["frame_predictor"]
-    for name in ("embed", "output"):
-        out[f"frame_predictor.{name}.weight"] = _t(np.asarray(fp[name]["w"]).T)
-        out[f"frame_predictor.{name}.bias"] = _t(fp[name]["b"])
-    for i, cell in enumerate(fp["cells"]):
-        for k in ("w_ih", "w_hh"):
-            out[f"frame_predictor.cells.{i}.weight_{k[2:]}"] = _t(
-                np.asarray(cell[k]).T)
-        for k in ("b_ih", "b_hh"):
-            out[f"frame_predictor.cells.{i}.bias_{k[2:]}"] = _t(cell[k])
-
+        _backbone(out, part, part, params[part], stats[part])
+    out.update(predictor_from_jax(params["frame_predictor"],
+                                  "frame_predictor."))
     for k, v in params["gp"].items():
         out[f"gp.{k}"] = _t(v)
     out["likelihood.raw_noise"] = _t(params["likelihood"]["raw_noise"])

@@ -33,6 +33,14 @@ JAX package's): (n_free, K, B, g_dim) for the batch paths, (n_free, K,
 g_dim) for pairs, (n_eval − 12, B, g_dim) for gp_trigger; only the fork
 steps read it.
 
+Serving. `posterior`, `diverse_metrics` and `gp_trigger` are each a
+core over `RolloutFns.prepare()`'s output (BN folded, cast, channels_last,
+the GP caches), run under inference_mode; `serve/export.py` prepares
+once and traces the core (`RolloutFns.cores`), whose seed and offsets may
+be tensors. The entries prepare afresh on every call, so a model that
+keeps training (the training CLI's plots) is always rolled with its
+current weights.
+
 Sharded eval departs from `dvg_tpu` here, on purpose. `dvg_tpu`'s
 sample-sharded run folds its key by device (dvg_tpu/parallel/mesh.py:
 121-126), so it draws other futures than its unsharded run and its CLI
@@ -68,6 +76,29 @@ TRIGGER_SKIP_FRAMES = 5  # ... whose skips come from its first 5 encodes
 EpsAt = Callable[[int], torch.Tensor]
 
 
+class Prepared(NamedTuple):
+    """What every rollout runs on: the model with eval-mode BN folded into
+    its convs, cast to the compute dtype and in channels_last, and the GP
+    cache in the compute dtype and in f32 (the full-covariance draw's)."""
+    model: DVGModel
+    cache: gp_mod.GPCache
+    cache32: gp_mod.GPCache
+
+
+class Cores(NamedTuple):
+    """The traceable cores of the served entries: pure tensor code over a
+    `Prepared`, with no module copy or cast, no grad-mode switch and no
+    branch on tensor data. `seed`, `row_offset` and `sample_offset` may be
+    ints or 0-dim int64 tensors (an exported program's inputs)."""
+    # (prepared, x) -> (n_eval, B, H, W, C) f32
+    posterior: Callable
+    # (prepared, x, seed, row_offset, sample_offset, noise) ->
+    #   {"ssim", "psnr", "mse": (S, n_free, B)}
+    diverse_metrics: Callable
+    # (prepared, x, seed, noise) -> (frames, diagnostics)
+    gp_trigger: Callable
+
+
 class RolloutFns(NamedTuple):
     # (x, device) -> (n_eval, B, H, W, C) f32
     posterior: Callable
@@ -94,6 +125,12 @@ class RolloutFns(NamedTuple):
     gp_trigger: Callable
     # S, the futures diverse and diverse_metrics roll per clip
     nsample: int
+    # () -> Prepared: the fold, cast and GP caches of the model's current
+    #   weights, which every entry above makes afresh on each call
+    prepare: Callable
+    # the cores of posterior, diverse_metrics and gp_trigger: each entry is
+    #   its core on prepare()'s output under inference_mode
+    cores: Cores
 
 
 def _context_phase(model: DVGModel, x: torch.Tensor, n_past: int
@@ -154,15 +191,17 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
     fork_15 = fork_schedule(n_past, n_eval)
     fork_10 = np.arange(n_past, n_eval) == PLOT_FORK_STEP
 
-    def prep() -> Tuple[DVGModel, gp_mod.GPCache, gp_mod.GPCache]:
+    @torch.no_grad()
+    def prepare() -> Prepared:
         """Fold eval-mode BN into the convs and build the GP cache, both in
         f32, then cast weights and cache to the compute dtype. The f32
         cache is kept for the full-covariance draw
         (gp.cached_rsample_fullcov)."""
         folded = model.fold_inference_params()
         cache32 = folded.gp_cache()
-        return (folded.to(dtype=dtype, memory_format=torch.channels_last),
-                cache32.to(dtype), cache32)
+        return Prepared(folded.to(dtype=dtype,
+                                  memory_format=torch.channels_last),
+                        cache32.to(dtype), cache32)
 
     def clip(x, device, min_t: int) -> torch.Tensor:
         dev = resolve_device(device)
@@ -175,7 +214,7 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                              f"{tuple(x.shape)}")
         return x
 
-    def grid_noise(noise, seed: int, sample_ids: torch.Tensor,
+    def grid_noise(noise, seed, sample_ids: torch.Tensor,
                    row_ids: torch.Tensor) -> EpsAt:
         """eps (K·B, D) of step t for every (sample, row) of a K × B grid,
         sample-major."""
@@ -190,12 +229,13 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             seed, sample_ids[:, None], t, row_ids[None, :], d,
             device=model.device).reshape(k * b, d)
 
-    def rollout(m: DVGModel, cache, cache32, x: torch.Tensor, k: int,
-                fork: np.ndarray, eps_at: EpsAt, mean_mode: bool = False
+    def rollout(p: Prepared, x: torch.Tensor, k: int, fork: np.ndarray,
+                eps_at: EpsAt, mean_mode: bool = False
                 ) -> Iterator[torch.Tensor]:
         """The free run of k futures of every clip of x (already in the
         compute dtype), as one merged sample-major (k·B) batch; yields
         each step's frames (k·B, H, W, C) in the compute dtype."""
+        m = p.model
         hidden_b, skip_b, x_in_b = _context_phase(m, x, n_past)
         hidden = tuple(a.repeat(1, k, 1) for a in hidden_b)
         x_in = x_in_b.repeat(k, 1, 1, 1)
@@ -207,25 +247,27 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             h, skips_new = m.encode(x_in)
             latent, hidden = m.predict_latent(hidden, h)
             if mean_mode:
-                mean, _ = gp_mod.cached_mean_var(cache, m.to_gp_layout(latent))
+                mean, _ = gp_mod.cached_mean_var(p.cache,
+                                                 m.to_gp_layout(latent))
                 latent = m.from_gp_layout(mean)
             elif fork[t]:
-                latent = draw(m, cache, cache32, h, eps_at(t), k)
+                latent = draw(p, h, eps_at(t), k)
             x_in = (m.decode(latent, skips_new) if refresh
                     else m.decode_hoisted(latent, skip_pre))
             yield x_in
 
-    def draw(m: DVGModel, cache, cache32, h: torch.Tensor,
-             eps: torch.Tensor, groups: int) -> torch.Tensor:
+    def draw(p: Prepared, h: torch.Tensor, eps: torch.Tensor, groups: int
+             ) -> torch.Tensor:
         """GP sample of gp(h) for the merged batch h (groups·B, D), eps
         (groups·B, D): per-row marginal, or (full_cov) correlated across
         the B rows of each group."""
+        m = p.model
         if not fc:
             return m.from_gp_layout(gp_mod.cached_rsample(
-                cache, m.to_gp_layout(h), eps.to(h.dtype).transpose(0, 1)))
+                p.cache, m.to_gp_layout(h), eps.to(h.dtype).transpose(0, 1)))
         b = h.shape[0] // groups
         y = gp_mod.cached_rsample_fullcov(
-            cache32, h.reshape(groups, b, d).transpose(1, 2)[..., None],
+            p.cache32, h.reshape(groups, b, d).transpose(1, 2)[..., None],
             eps.reshape(groups, b, d).transpose(1, 2))
         return y.transpose(1, 2).reshape(groups * b, d)
 
@@ -242,28 +284,28 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                              "clips")
         k, b = len(sample_ids), x.shape[1]
         eps_at = grid_noise(noise, seed, sample_ids, row_ids)
-        m, cache, cache32 = prep()
+        p = prepare()
         x = x.to(dtype)
         frames = torch.empty((n_free, k * b) + x.shape[2:],
                              dtype=torch.float32, device=x.device)
-        for t, x_out in enumerate(rollout(m, cache, cache32, x, k, fork,
-                                          eps_at)):
+        for t, x_out in enumerate(rollout(p, x, k, fork, eps_at)):
             frames[t] = x_out
         frames = frames.reshape((n_free, k, b) + x.shape[2:]).transpose(0, 1)
         ctx = x[:n_past].float().expand((k,) + x[:n_past].shape)
         return torch.cat([ctx, frames], dim=1)
+
+    def posterior_core(p: Prepared, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(dtype)
+        frames = [x_out.float() for x_out in rollout(
+            p, x, 1, np.zeros(n_free, bool), None, mean_mode=True)]
+        return torch.cat([x[:n_past].float(), torch.stack(frames)], dim=0)
 
     @torch.inference_mode()
     def posterior(x, device="cuda") -> torch.Tensor:
         """(T, B, H, W, C) f32: the context frames, then n_free frames each
         decoding the GP posterior mean of the LSTM's prediction."""
         x = clip(x, device, n_past)
-        m, cache, cache32 = prep()
-        x = x.to(dtype)
-        frames = [x_out.float() for x_out in rollout(
-            m, cache, cache32, x, 1, np.zeros(n_free, bool), None,
-            mean_mode=True)]
-        return torch.cat([x[:n_past].float(), torch.stack(frames)], dim=0)
+        return posterior_core(prepare(), x)
 
     def diverse(x, seed: int = 0, noise=None, device="cuda") -> torch.Tensor:
         b = torch.as_tensor(x).shape[1]
@@ -328,10 +370,10 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             def eps_at(t):
                 return gp_mod.fork_noise(seed, sample_ids, t, row_ids, d,
                                          device=model.device)
-        m, cache, cache32 = prep()
+        p = prepare()
         x_sel = x_sel.to(dtype)
         frames = [x_out.float() for x_out in rollout(
-            m, cache, cache32, x_sel, 1, fork_15, eps_at)]
+            p, x_sel, 1, fork_15, eps_at)]
         return torch.cat([x_sel[:n_past].float(), torch.stack(frames)], dim=0)
 
     def step_metrics(gt: torch.Tensor) -> Callable[[int, torch.Tensor],
@@ -363,6 +405,18 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
             return torch.stack([s_v, q_v, m_v])
         return metrics
 
+    def metrics_core(p: Prepared, x: torch.Tensor, seed=0, row_offset=0,
+                     sample_offset=0, noise=None) -> Dict[str, torch.Tensor]:
+        b = x.shape[1]
+        eps_at = grid_noise(noise, seed, sample_offset + torch.arange(s_n),
+                            row_offset + torch.arange(b))
+        # metrics against the f32 truth
+        score = step_metrics(x[n_past:n_eval].float().contiguous())
+        x = x.to(dtype)
+        out = torch.stack([score(t, x_out) for t, x_out in enumerate(
+            rollout(p, x, s_n, fork_15, eps_at))], dim=2)
+        return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
+
     @torch.inference_mode()
     def diverse_metrics(x, seed: int = 0, noise=None, device="cuda",
                         row_offset: int = 0, sample_offset: int = 0
@@ -373,19 +427,76 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
         (samples × rows) grid draws what the whole grid drew for the same
         ids (`parallel.shard_diverse_metrics`)."""
         x = clip(x, device, n_eval)
-        b = x.shape[1]
-        eps_at = grid_noise(noise, seed, sample_offset + torch.arange(s_n),
-                            row_offset + torch.arange(b))
-        # metrics against the f32 truth
-        score = step_metrics(x[n_past:n_eval].float().contiguous())
-        m, cache, cache32 = prep()
+        return metrics_core(prepare(), x, seed, row_offset, sample_offset,
+                            noise)
+
+    def trigger_core(p: Prepared, x: torch.Tensor, seed=0, noise=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if n_eval < TRIGGER_WARMUP:
+            raise ValueError(
+                f"gp_trigger needs n_eval >= {TRIGGER_WARMUP} (the fixed "
+                f"{TRIGGER_WARMUP}-step free-run warmup that seeds the "
+                f"rolling threshold window) but cfg.n_eval={n_eval}")
+        m, b = p.model, x.shape[1]
+        if noise is None:
+            # every decision step's draw in one call: one hash in the
+            # graph instead of one per step, the same eps
+            steps = torch.arange(TRIGGER_WARMUP, n_eval, device=x.device)
+            noise = gp_mod.fork_noise(seed, 0, steps[:, None],
+                                      torch.arange(b)[None], d,
+                                      device=x.device)
+
         x = x.to(dtype)
-        out = torch.empty((3, s_n, n_free, b), dtype=torch.float32,
-                          device=x.device)
-        for t, x_out in enumerate(rollout(m, cache, cache32, x, s_n, fork_15,
-                                          eps_at)):
-            out[:, :, t] = score(t, x_out)
-        return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
+
+        def var_norm(h: torch.Tensor) -> torch.Tensor:
+            v = gp_mod.cached_variance(p.cache, m.to_gp_layout(h))  # (D, B)
+            return torch.linalg.vector_norm(v.float(), dim=0)      # (B,)
+
+        hidden = m.lstm_hidden_init(b, dtype=dtype)
+        x_in = x[0]
+        frames, window = [], []
+        skip = None
+        for i in range(TRIGGER_WARMUP):
+            h, skips_i = m.encode(x_in)
+            if i < TRIGGER_SKIP_FRAMES:        # the skip updates BEFORE decode
+                skip = skips_i
+            window.append(var_norm(h))
+            h_pred, hidden = m.predict_latent(hidden, h)
+            x_in = m.decode(h_pred, skip)
+            frames.append(x_in.float())
+        warmup_values = window = torch.stack(window)
+        skip_pre = m.decode_skip_pre(skip)
+
+        triggers, values, thresholds = [], [], []
+        for i in range(TRIGGER_WARMUP, n_eval):
+            h, _ = m.encode(x_in)
+            value = var_norm(h)
+            window = torch.cat([window[1:], value[None]])
+            thresh = (window.mean(0)
+                      + cfg.trigger_sigma * window.std(0, correction=0)
+                      - cfg.trigger_margin)
+            h_pred, hidden_new = m.predict_latent(hidden, h)
+            sample = draw(p, h, noise[i - TRIGGER_WARMUP], 1)
+            trig = value > thresh                                   # (B,)
+            latent = torch.where(trig[:, None], sample, h_pred)
+            # triggered rows skip the LSTM step: their hidden stays stale
+            hidden = tuple(torch.where(trig[None, :, None], old, new)
+                           for old, new in zip(hidden, hidden_new))
+            x_in = m.decode_hoisted(latent, skip_pre)
+            frames.append(x_in.float())
+            triggers.append(trig)
+            values.append(value)
+            thresholds.append(thresh)
+
+        def stacked(steps: List[torch.Tensor], dtype) -> torch.Tensor:
+            """(n_eval − 12, B); empty at n_eval 12."""
+            return torch.stack(steps) if steps else torch.empty(
+                (0, b), dtype=dtype, device=x.device)
+        return torch.stack(frames), {
+            "triggers": stacked(triggers, torch.bool),
+            "values": stacked(values, torch.float32),
+            "thresholds": stacked(thresholds, torch.float32),
+            "warmup_values": warmup_values}
 
     @torch.inference_mode()
     def gp_trigger(x, seed: int = 0, noise=None, device="cuda"
@@ -399,79 +510,15 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
         step. The skips stay frozen after the warm-up. The diagnostics
         carry each step's threshold beside its value (the JAX package
         returns the values only)."""
-        total = n_eval
-        if total < TRIGGER_WARMUP:
-            raise ValueError(
-                f"gp_trigger needs n_eval >= {TRIGGER_WARMUP} (the fixed "
-                f"{TRIGGER_WARMUP}-step free-run warmup that seeds the "
-                f"rolling threshold window) but cfg.n_eval={total}")
         x = clip(x, device, 1)
         b = x.shape[1]
         if noise is not None:
             noise = torch.as_tensor(noise, device=model.device)
-            want = (total - TRIGGER_WARMUP, b, d)
+            want = (n_eval - TRIGGER_WARMUP, b, d)
             if tuple(noise.shape) != want:
                 raise ValueError(f"noise must be {want}, got "
                                  f"{tuple(noise.shape)}")
-
-        def eps_at(i: int) -> torch.Tensor:
-            if noise is not None:
-                return noise[i - TRIGGER_WARMUP]
-            return gp_mod.fork_noise(seed, 0, i, torch.arange(b), d,
-                                     device=model.device)
-
-        m, cache, cache32 = prep()
-        x = x.to(dtype)
-
-        def var_norm(h: torch.Tensor) -> torch.Tensor:
-            v = gp_mod.cached_variance(cache, m.to_gp_layout(h))   # (D, B)
-            return torch.linalg.vector_norm(v.float(), dim=0)      # (B,)
-
-        hidden = m.lstm_hidden_init(b, dtype=dtype)
-        x_in = x[0]
-        frames = torch.empty((total,) + x.shape[1:], dtype=torch.float32,
-                             device=x.device)
-        window = torch.empty((TRIGGER_WARMUP, b), dtype=torch.float32,
-                             device=x.device)
-        skip = None
-        for i in range(TRIGGER_WARMUP):
-            h, skips_i = m.encode(x_in)
-            if i < TRIGGER_SKIP_FRAMES:        # the skip updates BEFORE decode
-                skip = skips_i
-            window[i] = var_norm(h)
-            h_pred, hidden = m.predict_latent(hidden, h)
-            x_in = m.decode(h_pred, skip)
-            frames[i] = x_in
-        warmup_values = window.clone()
-        skip_pre = m.decode_skip_pre(skip)
-
-        n_trig = total - TRIGGER_WARMUP
-        triggers = torch.empty((n_trig, b), dtype=torch.bool, device=x.device)
-        values = torch.empty((n_trig, b), dtype=torch.float32,
-                             device=x.device)
-        thresholds = torch.empty_like(values)
-        for i in range(TRIGGER_WARMUP, total):
-            h, _ = m.encode(x_in)
-            value = var_norm(h)
-            window = torch.cat([window[1:], value[None]])
-            thresh = (window.mean(0)
-                      + cfg.trigger_sigma * window.std(0, correction=0)
-                      - cfg.trigger_margin)
-            h_pred, hidden_new = m.predict_latent(hidden, h)
-            sample = draw(m, cache, cache32, h, eps_at(i), 1)
-            trig = value > thresh                                   # (B,)
-            latent = torch.where(trig[:, None], sample, h_pred)
-            # triggered rows skip the LSTM step: their hidden stays stale
-            hidden = tuple(torch.where(trig[None, :, None], old, new)
-                           for old, new in zip(hidden, hidden_new))
-            x_in = m.decode_hoisted(latent, skip_pre)
-            frames[i] = x_in
-            triggers[i - TRIGGER_WARMUP] = trig
-            values[i - TRIGGER_WARMUP] = value
-            thresholds[i - TRIGGER_WARMUP] = thresh
-        return frames, {"triggers": triggers, "values": values,
-                        "thresholds": thresholds,
-                        "warmup_values": warmup_values}
+        return trigger_core(prepare(), x, seed, noise)
 
     return RolloutFns(posterior=posterior, diverse=diverse,
                       diverse_metrics=diverse_metrics,
@@ -479,7 +526,9 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                       diverse_select_pairs=diverse_select_pairs,
                       diverse_rollout_with_keys=diverse_rollout_with_keys,
                       plot_samples=plot_samples, gp_trigger=gp_trigger,
-                      nsample=s_n)
+                      nsample=s_n, prepare=prepare,
+                      cores=Cores(posterior_core, metrics_core,
+                                  trigger_core))
 
 
 def best_of_n(metric_bst: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -250,15 +250,20 @@ def _mix32(x):
     return x ^ (x >> 15)
 
 
-def _scalar_key(*words: int) -> int:
+def _scalar_key(*words):
+    """The words hashed into one 32-bit key: a Python int, or an int64
+    tensor where a word is one (an exported program's 0-dim seed input, a
+    batch of steps: one key per element). The tensor arithmetic is the int
+    arithmetic for every word in int64 range (both shift arithmetically),
+    so the key is the same either way."""
     h = 0
     for w in words:
-        w = int(w)
+        w = w.to(torch.int64) if isinstance(w, torch.Tensor) else int(w)
         h = _mix32(h ^ ((w ^ (w >> 32)) & _MASK32))
     return h
 
 
-def fork_noise(seed: int, sample_ids, step: int, row_ids, dim: int,
+def fork_noise(seed, sample_ids, step, row_ids, dim: int,
                device="cpu", dtype: torch.dtype = torch.float32
                ) -> torch.Tensor:
     """Standard-normal eps for every (sample, row) pair asked for:
@@ -270,13 +275,18 @@ def fork_noise(seed: int, sample_ids, step: int, row_ids, dim: int,
     does not depend on which other pairs are in the call or on the device
     (CPU and card agree to the last f32 ulp of the f64 log/cos), so a
     re-roll of any subset of pairs reproduces the draws of the full run.
+    `seed` is an int or a 0-dim int64 tensor, with bit-equal eps for equal
+    values: a traced program takes it as an input instead of baking it in.
+    `step` is an int, or an int64 tensor that broadcasts with the ids (the
+    result then has the shape of all three): many steps' draws in one
+    call, each bit-equal to its own call's.
     One hash over a (pairs, 2·dim) int64 tensor plus the Box–Muller
     transform: about twenty elementwise kernels per call."""
     dev = torch.device(device)
     ids = torch.broadcast_tensors(
         torch.as_tensor(sample_ids, dtype=torch.int64, device=dev),
         torch.as_tensor(row_ids, dtype=torch.int64, device=dev))
-    salt = torch.tensor(_scalar_key(0x5EED, seed, step), device=dev)
+    salt = torch.as_tensor(_scalar_key(0x5EED, seed, step), device=dev)
     pair = _mix32(salt ^ (ids[0] & _MASK32))
     pair = _mix32(pair ^ _mix32(ids[1] & _MASK32))
     lane = _mix32(torch.arange(2 * dim, dtype=torch.int64, device=dev)

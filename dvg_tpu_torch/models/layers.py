@@ -196,10 +196,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     `module`, in `named_modules` order (LSTM cells and the GP initialise
     themselves: models/rnn.py, models/gp.py)."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                          nn.Linear)):
             m.weight.normal_(0.0, WEIGHT_STD, generator=generator)
             m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d)):
             m.weight.normal_(1.0, WEIGHT_STD, generator=generator)
             m.bias.zero_()
             m.running_mean.zero_()

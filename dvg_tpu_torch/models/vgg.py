@@ -228,3 +228,37 @@ class Decoder(nn.Module):
             d = _blocks_eval(group[1:], L.leaky_relu(
                 y + L.nchw(pre) + conv.bias[:, None, None]))
         return L.nhwc(torch.sigmoid(self.final(d)))
+
+
+class GaussianEncoder(nn.Module):
+    """The VGG encoder as the trunk of a Gaussian (VAE) head (reference
+    vgg_64.py:108-159; `dvg_tpu`'s gaussian_encoder_*): mu and logvar
+    Linears on the trunk's h, and the sample mu + exp(logvar / 2)·eps
+    from an eps (B, output_size) the caller gives. The reference's scripts
+    do not use it; it is off the card's path."""
+
+    def __init__(self, dim: int, output_size: int, nc: int = 1,
+                 image_width: int = 64):
+        super().__init__()
+        self.trunk = Encoder(dim, nc, image_width)
+        self.mu = nn.Linear(dim, output_size)
+        self.logvar = nn.Linear(dim, output_size)
+
+    def _head(self, h: torch.Tensor, eps: torch.Tensor):
+        mu, logvar = self.mu(h), self.logvar(h)
+        return mu + torch.exp(0.5 * logvar) * eps, mu, logvar
+
+    def forward(self, x: torch.Tensor, eps: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           List[torch.Tensor]]:
+        """Eval mode (BN running statistics): x (B, H, W, C) → (z, mu,
+        logvar, skips)."""
+        h, skips = self.trunk(x)
+        return self._head(h, eps) + (skips,)
+
+    def train_forward(self, x: torch.Tensor, eps: torch.Tensor,
+                      group=None):
+        """Train mode (BN batch statistics, global over `group`'s ranks
+        under one) → (z, mu, logvar, skips, per-block statistics)."""
+        h, skips, stats = self.trunk.train_forward(x, 1, group=group)
+        return self._head(h, eps) + (skips, stats)

@@ -14,11 +14,20 @@ step's rows with one copy.)
 (the counterpart of `ssim_psnr_batch_pallas`) — takes gt (N, H, W, C) f32
 and pred (N, H, W, C) f32 or bf16 and scores them pair by pair → (3, N).
 
-For CPU tensors each runs its plain version (`ops.ssim`); for CUDA tensors
-it launches its kernel or raises — a failed build or launch is an error,
-never a fallback. The kernel takes C in `CHANNELS` and widths up to
+Both are registered as custom ops, `torch.ops.dvg_tpu_torch.ssim_cyclic`
+(K1) and `torch.ops.dvg_tpu_torch.ssim_images` (K2), and the wrappers call
+them: an exported program (`serve/export.py`) holds each call as one node,
+which a loaded artifact dispatches like any aten op. Each op's CPU
+implementation is its plain version (`ops.ssim`); its CUDA implementation
+launches its kernel or raises — a failed build or launch is an error,
+never a fallback; its fake implementation gives the (3, N) f32 output's
+shape to a trace. The kernel takes C in `CHANNELS` and widths up to
 `MAX_WIDTH`; `_check` refuses other CUDA inputs before any launch. Each
-wrapper's `.launches` counts its kernel's launches.
+wrapper's `.launches` counts its kernel's launches, made by the CUDA
+implementation, so launches from inside a loaded artifact count too.
+
+This module imports nothing of `models/` or `generate/`: importing it is
+all a serving host needs to load an artifact.
 """
 
 from __future__ import annotations
@@ -98,23 +107,61 @@ def _check(gt: torch.Tensor, pred: torch.Tensor) -> bool:
 
 def ssim_psnr_batch_cyclic(gt: torch.Tensor, pred: torch.Tensor
                            ) -> torch.Tensor:
-    if _check(gt, pred):
-        return torch.stack(ssim_psnr_cyclic_plain(gt, pred))
+    return torch.ops.dvg_tpu_torch.ssim_cyclic(gt, pred)
+
+
+def ssim_psnr_batch_images(gt: torch.Tensor, pred: torch.Tensor
+                           ) -> torch.Tensor:
+    return torch.ops.dvg_tpu_torch.ssim_images(gt, pred)
+
+
+def _check_images(gt: torch.Tensor, pred: torch.Tensor) -> bool:
+    if gt.shape[0] != pred.shape[0]:
+        raise ValueError(f"gt {tuple(gt.shape)} and pred {tuple(pred.shape)} "
+                         "differ in N: K2 scores them pair by pair")
+    return _check(gt, pred)
+
+
+@torch.library.custom_op("dvg_tpu_torch::ssim_cyclic", mutates_args=(),
+                         device_types="cpu")
+def _ssim_cyclic(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check(gt, pred)
+    return torch.stack(ssim_psnr_cyclic_plain(gt, pred))
+
+
+@_ssim_cyclic.register_kernel("cuda")
+def _ssim_cyclic_cuda(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check(gt, pred)
     out = launch(gt, pred)
     ssim_psnr_batch_cyclic.launches += 1
     return out
 
 
-def ssim_psnr_batch_images(gt: torch.Tensor, pred: torch.Tensor
-                           ) -> torch.Tensor:
-    if gt.shape[0] != pred.shape[0]:
-        raise ValueError(f"gt {tuple(gt.shape)} and pred {tuple(pred.shape)} "
-                         "differ in N: K2 scores them pair by pair")
-    if _check(gt, pred):
-        return torch.stack(ssim_psnr_images_plain(gt, pred))
+@_ssim_cyclic.register_fake
+def _ssim_cyclic_fake(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check(gt, pred)
+    return pred.new_empty((3, pred.shape[0]), dtype=torch.float32)
+
+
+@torch.library.custom_op("dvg_tpu_torch::ssim_images", mutates_args=(),
+                         device_types="cpu")
+def _ssim_images(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check_images(gt, pred)
+    return torch.stack(ssim_psnr_images_plain(gt, pred))
+
+
+@_ssim_images.register_kernel("cuda")
+def _ssim_images_cuda(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check_images(gt, pred)
     out = launch_images(gt, pred)
     ssim_psnr_batch_images.launches += 1
     return out
+
+
+@_ssim_images.register_fake
+def _ssim_images_fake(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    _check_images(gt, pred)
+    return pred.new_empty((3, pred.shape[0]), dtype=torch.float32)
 
 
 def _raise_on(err: int) -> None:

@@ -31,6 +31,10 @@ up to lr·(|g_a| + |g_b|)/eps (tests/test_torch_train.py), and the encoder
 running means those biases shift — and the gathered eval metrics within
 1e-6 (PSNR relative). Returns every rank's results and the references for the caller
 (tests/test_torch_parallel.py holds them against `dvg_tpu`'s).
+
+`serve_multiproc(path, n, x, seed)` runs a sharded serving artifact
+(`serve/export.py`) on n gloo ranks the same way and returns what every
+rank's call gave.
 """
 
 from __future__ import annotations
@@ -280,6 +284,53 @@ def eval_error(got: Dict[str, torch.Tensor],
     return max(float(((got[k] - ref[k]).abs()
                       / (ref[k].abs() if k == "psnr" else 1.0)).max())
                for k in ref)
+
+
+def _serve_rank(rank: int, n: int, port: int, tmp: str) -> None:
+    """One rank of `serve_multiproc`: join the group, load the sharded
+    artifact and call it on the whole clip; saves the gathered metrics and
+    the model or generation modules this process imported to
+    tmp/serve<r>.pt (or the traceback to tmp/serve<r>.err)."""
+    import sys
+    try:
+        os.environ.update(DVG_COORDINATOR=f"localhost:{port}",
+                          DVG_NUM_PROCESSES=str(n), DVG_PROCESS_ID=str(rank))
+        torch.set_num_threads(1)
+        import torch.distributed as dist
+        from dvg_tpu_torch.parallel import distributed_init
+        from dvg_tpu_torch.serve import load_serving
+        if not distributed_init(device="cpu"):
+            raise RuntimeError("the DVG_* env did not start a group")
+        inputs = torch.load(Path(tmp) / "serve_inputs.pt", weights_only=False)
+        served = load_serving(inputs["path"])
+        out = {"metrics": served(inputs["x"], inputs["seed"]),
+               "modules": sorted(m for m in sys.modules if m.startswith(
+                   ("dvg_tpu_torch.models", "dvg_tpu_torch.generate")))}
+        torch.save(out, Path(tmp) / f"serve{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(tmp) / f"serve{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def serve_multiproc(path: str, n: int, x, seed: int,
+                    timeout_s: float = 600.0) -> List[Dict[str, Any]]:
+    """Run the sharded serving artifact `path` (`serve.export_serving(...,
+    mesh_samples=...)`, exported for the CPU) on n gloo ranks, every rank
+    calling it on the whole clip x with `seed` → each rank's {"metrics":
+    gathered (S, n_free, B) metrics, "modules": the model or generation
+    modules it imported}."""
+    with tempfile.TemporaryDirectory(prefix="dvg_serve_") as tmp:
+        torch.save({"path": str(path), "x": torch.as_tensor(x),
+                    "seed": seed}, Path(tmp) / "serve_inputs.pt")
+        try:
+            run_ranks(_serve_rank, n, (free_port(), tmp), timeout_s)
+        except RuntimeError as e:
+            errs = "\n".join(p.read_text()
+                             for p in sorted(Path(tmp).glob("*.err")))
+            raise RuntimeError(f"{e}\n{errs}") from None
+        return [torch.load(Path(tmp) / f"serve{r}.pt", weights_only=False)
+                for r in range(n)]
 
 
 def dryrun_multiproc(n: int, inputs: Optional[Dict[str, Any]] = None,

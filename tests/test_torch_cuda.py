@@ -364,3 +364,51 @@ def test_two_gloo_ranks_share_the_card_for_the_sharded_eval(cuda, tmp_path):
             [r["metrics"][k] for k in chip_smoke.METRICS],
             [ref[k].cpu() for k in chip_smoke.METRICS])
         assert chip_smoke.within(errs, chip_smoke.DIST_F32_TOL), errs
+
+
+# ---------------------------------------------------------------------------
+# serving: the custom ops and a tiny artifact on the card
+# ---------------------------------------------------------------------------
+
+def test_custom_ops_on_card_match_plain_and_count(cuda):
+    """`torch.ops.dvg_tpu_torch.ssim_cyclic` and `ssim_images`, called as an
+    exported program calls them, launch the kernels (counted) and match the
+    plain versions."""
+    gt, pred = _pair(cuda, 4, 3, 3, torch.bfloat16)
+    for op, wrapper, p, ref in (
+            (torch.ops.dvg_tpu_torch.ssim_cyclic, ssim_psnr_batch_cyclic,
+             pred, plain.ssim_psnr_cyclic_plain(gt, pred)),
+            (torch.ops.dvg_tpu_torch.ssim_images, ssim_psnr_batch_images,
+             pred[:4], plain.ssim_psnr_images_plain(gt, pred[:4]))):
+        before = wrapper.launches
+        got = op(gt, p)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _close(got, ref, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        torch.ops.dvg_tpu_torch.ssim_cyclic(gt, pred.transpose(1, 2))
+
+
+def test_tiny_artifact_on_card_equals_live(cuda, tmp_path):
+    """A tiny f32 diverse_metrics artifact exported for the card, loaded
+    and called: K1 launched once per free step from inside the program,
+    and the live entry's metrics (SSIM 1e-5, PSNR 1e-3 dB, MSE rtol
+    1e-5)."""
+    from dvg_tpu_torch.serve import export_serving, load_serving
+    cfg = DVGConfig(**TINY)
+    ckpt = save_checkpoint(str(tmp_path), cfg,
+                           DVGModel(cfg, seed=0, device="cuda"))
+    path = export_serving(ckpt, str(tmp_path / "dm.pt2"),
+                          entry="diverse_metrics", nsample=3, batch_size=2,
+                          n_eval=17)
+    served = load_serving(path)
+    x = torch.rand((17, 2, 64, 64, 3), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(4))
+    before = ssim_psnr_batch_cyclic.launches
+    got = served(x, 6)
+    torch.cuda.synchronize()
+    assert ssim_psnr_batch_cyclic.launches == before + 15
+    _, model = load_model(ckpt, device="cuda")
+    ref = make_rollout_fns(model, cfg).diverse_metrics(x, seed=6)
+    _close([got[k] for k in ("ssim", "psnr", "mse")],
+           [ref[k] for k in ("ssim", "psnr", "mse")], 1e-5)
