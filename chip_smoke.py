@@ -142,6 +142,18 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      frames within SERVE_BF16_FRAME_ATOL, gp_trigger's decisions all
      equal; the sharded f32 artifact within SERVE_F32_TOL of the live
      entry.
+ 16. [soak quick] the training soak's CLI, `python -m
+     dvg_tpu_torch.cli.soak --quick`, as a user runs it: the training CLI
+     at the recipe's width (DCGAN-64, C 1, g_dim 90, rnn 256×2, bf16, B
+     100) for 2 epochs of 25 steps, the eval CLI (8 futures, n_eval 20, 2
+     batches of 50) and the GP-trigger run, each a subprocess: the
+     summary, wall seconds and K1's launches per eval batch (15, as the
+     eval CLI logs them); then `trained_checks` on its checkpoint: K1 and
+     K2 against plain on the model's bf16 frames at the main path's shapes
+     (TRAINED_TOL), and posterior, diverse_metrics and gp_trigger card
+     against CPU in f32 over TRAINED_CUT frames (FRAME_ATOL, PATH_TOL,
+     values 1e-4). The full soak's checkpoint goes through the same
+     function in a command of its own.
 Each phase prints its seconds. Then one JSON line describing every kernel
 of the port, and last the device line.
 
@@ -301,6 +313,19 @@ SERVE_BF16_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-5)
 SERVE_BF16_FRAME_ATOL = 2.0 ** -8
 SERVE_TIMEOUT_S = 600
 SERVE_REPS = 3            # timed calls per entry and side
+# phase 16: a trained checkpoint's kernels against plain, card against CPU
+TRAINED_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-5)
+TRAINED_PROTOCOL = dict(nsample=100, batch_size=50)  # the eval CLI's
+TRAINED_ROWS, TRAINED_S = 2, 4  # f32 posterior / diverse_metrics vs the CPU
+TRAINED_TRIGGER_ROWS = 8  # f32 gp_trigger vs the CPU
+# the f32 card-vs-CPU checks' depth: n_past 5 and 15 free steps, the
+# recipe's training horizon (n_future 10) and the first fork (step 15). A
+# trained model's free run carries f32 rounding further at every step: on
+# runs/soak_smmnist_torch's weights the posterior's frames part 3.7e-5 at
+# the first free step and 2.9e-4 at the 25th; at n_eval 30 the quick
+# model's diverse_metrics MSE parted 9.6e-5 relative (NVIDIA H100 80GB
+# HBM3, 700 W)
+TRAINED_CUT = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -2946,6 +2971,203 @@ def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
     return dict(k1=int(dm["k1"]), k1_us=dm["k1_us"], k2=k2 // SERVE_REPS)
 
 
+# ---------------------------------------------------------------------------
+# [soak quick]: the training soak's CLI, and the kernels on trained
+# weights (phase 16)
+# ---------------------------------------------------------------------------
+
+def trigger_vs(got: dict, ref: dict) -> dict:
+    """Two gp_trigger runs' diagnostics (CPU tensors) on one clip. A row's
+    trajectories part at its first differing decision, so the values are
+    compared up to and including it: → the decisions, those on a shared
+    trajectory, the values' max relative difference there (and in the
+    warm-up), |value − threshold| of ref at each differing decision, and
+    whether each such margin lies within the two runs' difference of it
+    (no decision far from its threshold differs)."""
+    import torch
+    differ = got["triggers"] != ref["triggers"]                  # (T, B)
+    steps = torch.arange(differ.shape[0])[:, None]
+    first = torch.where(differ, steps, differ.shape[0]).amin(0)
+    shared = steps <= first[None]
+    rel = ((got["values"] - ref["values"]).abs()
+           / ref["values"].abs().clamp(min=1e-30))
+    warm = ((got["warmup_values"] - ref["warmup_values"]).abs()
+            / ref["warmup_values"].abs().clamp(min=1e-30))
+    m_ref = ref["values"] - ref["thresholds"]
+    m_got = got["values"] - got["thresholds"]
+    at = differ & shared
+    return dict(decisions=differ.numel(), shared=int(shared.sum()),
+                rel=max(rel[shared].max().item() if shared.any() else 0.0,
+                        warm.max().item()),
+                flips=m_ref[at].abs().tolist(),
+                flip_within=bool((m_ref[at].abs()
+                                  <= (m_got - m_ref)[at].abs()).all()))
+
+
+def _steps(errs) -> str:
+    """A per-free-step error list, every fifth step and the last."""
+    keep = sorted(set(range(0, len(errs), 5)) | {len(errs) - 1})
+    return " ".join(f"{t}:{errs[t]:.1e}" for t in keep)
+
+
+def trained_checks(model_dir: str, tag: str) -> dict:
+    """The checks of a trained checkpoint (model_dir/model.ckpt) on the
+    card, on the soak's first test batch (the eval CLI's batch 0):
+
+      * K1 and K2 against their plain versions on the model's predicted
+        frames at the main path's shapes: the bf16 protocol's 100 futures
+        of the batch's 50 clips at n_eval 105, K1 on every free step's
+        (5000, 64, 64, 1) frames against the step's ground truth, K2 on
+        the first 10 rows' sample-0 futures, a launch per row
+        (TRAINED_TOL);
+      * in f32 with TF32 off, card against the CPU over the clips' first
+        TRAINED_CUT frames: `posterior` on TRAINED_ROWS rows within
+        FRAME_ATOL, `diverse_metrics` (S TRAINED_S, seeded noise) within
+        PATH_TOL, and `gp_trigger` on TRAINED_TRIGGER_ROWS rows with its
+        values within 1e-4 relative on the trajectory both sides share and
+        a decision differing only where the CPU's value lies within the
+        two sides' difference of its threshold (`trigger_vs`). Each free
+        step's error is printed. → the numbers."""
+    import numpy as np
+    import torch
+    from dvg_tpu_torch.checkpoint import load_model
+    from dvg_tpu_torch.data import Loader, load_dataset
+    from dvg_tpu_torch.generate.rollout import make_rollout_fns
+    from dvg_tpu_torch.ops import ssim, ssim_cuda
+    saved, model = load_model(model_dir, device=CARD)
+    cfg = saved.generation_override().replace(dtype="bfloat16",
+                                              data_root="", **TRAINED_PROTOCOL)
+    loader = Loader(load_dataset(cfg, seq_len=cfg.n_eval, split="test"),
+                    cfg.batch_size, shuffle=False, seed=cfg.seed,
+                    num_threads=1, device="cpu")
+    try:
+        x = loader.next_batch(0)
+    finally:
+        loader.stop()
+    x = torch.as_tensor(x).float()
+    xc = x.to(CARD)
+    n_past, n_free = cfg.n_past, cfg.n_eval - cfg.n_past
+    torch.backends.cudnn.benchmark = True
+    frames = make_rollout_fns(model, cfg).diverse(xc, seed=cfg.seed * 1000,
+                                                  device=CARD)
+    frames = frames.to(torch.bfloat16)        # the rollout's bf16, exactly
+    res = {"k1": [0.0] * 4, "k2": [0.0] * 4}
+    for t in range(n_past, cfg.n_eval):
+        gt = xc[t].contiguous()
+        pred = frames[:, t].reshape((-1,) + tuple(gt.shape[1:])).contiguous()
+        e = max_errs(ssim_cuda.ssim_psnr_batch_cyclic(gt, pred),
+                     ssim.ssim_psnr_cyclic_plain(gt, pred))
+        res["k1"] = [max(a, b) for a, b in zip(res["k1"], e)]
+    for row in range(10):
+        gt = xc[n_past:, row].contiguous()
+        pred = frames[0, n_past:, row].contiguous()
+        e = max_errs(ssim_cuda.ssim_psnr_batch_images(gt, pred),
+                     ssim.ssim_psnr_images_plain(gt, pred))
+        res["k2"] = [max(a, b) for a, b in zip(res["k2"], e)]
+    spread = frames[:, -1].float().std(0).mean().item()
+    del frames
+    torch.cuda.empty_cache()
+    print(f"[{tag}] K1 on the trained model's frames, {n_free} steps of "
+          f"({cfg.nsample * cfg.batch_size}, 64, 64, {cfg.channels}) bf16 "
+          f"vs plain: max|dssim| {res['k1'][0]:.3e} max|dpsnr| "
+          f"{res['k1'][1]:.3e} dB mse rel {res['k1'][2]:.3e}; K2, 10 rows of "
+          f"{n_free} pairs: {res['k2'][0]:.3e} / {res['k2'][1]:.3e} dB / "
+          f"{res['k2'][2]:.3e} (tol {TRAINED_TOL}); futures' spread at the "
+          f"last step {spread:.3e}")
+    check(within(res["k1"], TRAINED_TOL), f"[{tag}] K1 vs plain {res['k1']}")
+    check(within(res["k2"], TRAINED_TOL), f"[{tag}] K2 vs plain {res['k2']}")
+    check(spread > 0, f"[{tag}] the trained model's futures do not differ")
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    _f32_exact()
+    cpu_model = copy.deepcopy(model).cpu()
+    small = cfg.replace(dtype="float32", nsample=TRAINED_S,
+                        batch_size=TRAINED_ROWS, n_eval=TRAINED_CUT,
+                        n_future=TRAINED_CUT - n_past)
+    xs = x[:TRAINED_CUT, :TRAINED_ROWS]
+    sides = (("cpu", cpu_model), (CARD, model))
+    post = {d: make_rollout_fns(m, small).posterior(xs, device=d).cpu()
+            for d, m in sides}
+    post_steps = (post[CARD] - post["cpu"]).abs().amax(
+        dim=(1, 2, 3, 4))[n_past:].tolist()
+    res["posterior"] = max(post_steps)
+    met = {d: {k: v.cpu() for k, v in make_rollout_fns(m, small)
+               .diverse_metrics(xs, seed=MAIN_SEED, device=d).items()}
+           for d, m in sides}
+    res["diverse_metrics"] = max_errs([met[CARD][k] for k in METRICS],
+                                      [met["cpu"][k] for k in METRICS])
+    dm_steps = (met[CARD]["ssim"] - met["cpu"]["ssim"]).abs().amax(
+        dim=(0, 2)).tolist()
+    trig_cfg = small.replace(batch_size=TRAINED_TRIGGER_ROWS)
+    xt = x[:TRAINED_CUT, :TRAINED_TRIGGER_ROWS]
+    diag = {d: {k: v.cpu() for k, v in make_rollout_fns(m, trig_cfg)
+                .gp_trigger(xt, seed=7, device=d)[1].items()}
+            for d, m in sides}
+    t = res["trigger"] = trigger_vs(diag[CARD], diag["cpu"])
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    e = res["diverse_metrics"]
+    print(f"[{tag}] f32, TF32 off, card vs CPU, n_eval {TRAINED_CUT}: "
+          f"posterior ({TRAINED_ROWS} rows) max|dframe| "
+          f"{res['posterior']:.3e} (atol {FRAME_ATOL}), by free step "
+          f"{_steps(post_steps)}; diverse_metrics (S {TRAINED_S}, "
+          f"{TRAINED_ROWS} rows) max|dssim| {e[0]:.3e} max|dpsnr| "
+          f"{e[1]:.3e} dB mse rel {e[2]:.3e} (tol {PATH_TOL}), |dssim| by "
+          f"free step {_steps(dm_steps)}")
+    print(f"[{tag}] f32 gp_trigger ({TRAINED_TRIGGER_ROWS} rows, "
+          f"{t['decisions']} decisions): {int(diag['cpu']['triggers'].sum())}"
+          f" fire on the CPU, {int(diag[CARD]['triggers'].sum())} on the "
+          f"card; {t['shared']} decisions on a trajectory both sides share "
+          f"(up to each row's first differing decision), values max rel d "
+          f"{t['rel']:.3e} there (tol 1e-4); {len(t['flips'])} decisions "
+          f"differ, at |value - threshold| "
+          f"{[f'{m:.2e}' for m in t['flips']]}, each within the two sides' "
+          f"difference of it {t['flip_within']}")
+    check(res["posterior"] <= FRAME_ATOL,
+          f"[{tag}] posterior card vs CPU {res['posterior']}")
+    check(within(e, PATH_TOL), f"[{tag}] diverse_metrics card vs CPU {e}")
+    check(t["rel"] <= 1e-4, f"[{tag}] gp_trigger values card vs CPU "
+          f"{t['rel']}")
+    check(t["flip_within"], f"[{tag}] a gp_trigger decision far from its "
+          "threshold differs between card and CPU")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_soak_quick(tmp: str) -> None:
+    """Phase 16: `python -m dvg_tpu_torch.cli.soak --quick` (DCGAN-64 at
+    the recipe's width, 2 epochs of 25 steps at B 100, an eval of 8
+    futures × n_eval 20 × 2 batches, the trigger run), then K1 and K2
+    against plain on its checkpoint's frames and the f32 card-vs-CPU
+    checks (`trained_checks`)."""
+    out = Path(tmp) / "soak_quick"
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dvg_tpu_torch.cli.soak",
+                        "--quick", "--keep_ckpt", "--out", str(out)],
+                       cwd=ROOT, capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"[soak quick] the soak failed (rc "
+          f"{p.returncode}):\n{p.stderr[-3000:]}")
+    man = json.loads((out / "manifest.json").read_text())
+    summ = man["summary"]
+    epochs = [r for r in read_records(out / "train") if r["kind"] == "epoch"]
+    n_free = 20 - 5
+    print(f"[soak quick] {man['device']}: {wall:.1f} s wall (train "
+          f"{man['wall_s']['train']} s, eval {man['wall_s']['eval']} s, "
+          f"trigger {man['wall_s']['trigger']} s); summary {summ}")
+    check(len(epochs) == 2 and all(math.isfinite(r["epoch_mse"])
+                                   for r in epochs), f"epochs {epochs}")
+    check(summ.get("k1_launches_per_batch") == [n_free] * 2,
+          f"K1 launches per eval batch {summ.get('k1_launches_per_batch')}")
+    for k in ("batch0_best_of_8_ssim", "batch1_best_of_8_ssim",
+              "batch0_mean_ssim", "batch1_mean_ssim", "trigger_count"):
+        check(k in summ and math.isfinite(summ[k]), f"summary {k}")
+    check(CARD_LINE in man["device"], f"manifest device {man['device']}")
+    trained_checks(str(out / "model"), "soak quick")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2996,6 +3218,7 @@ def main() -> int:
             serve = timed("serve", phase_serve, tmp, ckpt, x_main)
             k1["serve_launches"], k2["serve_launches"] = serve["k1"], \
                 serve["k2"]
+            timed("soak quick", phase_soak_quick, tmp)
         print(f"[backbones] {CARD_LINE}: " + "; ".join(
             f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
             f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"

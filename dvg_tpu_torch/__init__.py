@@ -28,9 +28,15 @@ BatchNorm, the sample- and (sample, data)-sharded diverse eval, both
 CLIs' mesh flags, coordinator-only writes), serving export (`serve/`:
 `torch.export` artifacts of posterior, diverse_metrics and gp_trigger, K1
 and K2 as custom ops, sharded artifacts; `python -m
-dvg_tpu_torch.serve.export`), and the modules no path calls: the gru, rnn
-and gaussian_lstm predictors, VGG's Gaussian encoder and the classifiers
-(`models/classifiers.py`). The port does all that `dvg_tpu` does.
+dvg_tpu_torch.serve.export`), the GP library API on the raw parameters
+(`models/gp.py`: rbf_cross, kernel_diag, predictive_variance,
+posterior_full_cov, rsample; DVGModel's gp_* wrappers), the training soak
+(`python -m dvg_tpu_torch.cli.soak`, the counterpart of scripts/soak.py),
+and the modules no path calls: the gru, rnn and gaussian_lstm predictors,
+VGG's Gaussian encoder and the classifiers (`models/classifiers.py`). The
+port does all that `dvg_tpu` does, with one result open: the soak it
+trains on the card scores below the JAX package's TPU run of the same
+recipe (F2 in ROADMAP.md queue 3).
 """
 
 __version__ = "0.1.0"

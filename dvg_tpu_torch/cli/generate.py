@@ -10,7 +10,8 @@
   * per test batch: the posterior rollout and `nsample` sampled futures
     scored in the loop (K1 unless --no_pallas; Finn's metric with --finn),
     best-of-N by mean SSIM, the (B, S, T') `ssim` and `psnr` arrays saved
-    as eval_batch<i>.npz and an "eval" record in metrics.jsonl; then the
+    as eval_batch<i>.npz and an "eval" record in metrics.jsonl (with K1's
+    launches in the batch's scoring, 0 on the CPU); then the
     best and 3 random futures of each of the first --gif_rows rows
     re-rolled exactly and written as sample_lstm_<n>.gif beside the ground
     truth and the posterior;
@@ -54,6 +55,7 @@ import torch.distributed as dist
 from dvg_tpu_torch.checkpoint import load_model
 from dvg_tpu_torch.data import Loader, load_dataset
 from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
+from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
 from dvg_tpu_torch.parallel import (distributed_init, is_coordinator,
                                     make_mesh, rank_device,
                                     shard_diverse_metrics, world_size)
@@ -243,8 +245,10 @@ def _run_batches(args, cfg, dev, fns, metrics_fn, loader, logger, timer
                         x, device=dev))
                 print(f"batch {bi}: {cfg.nsample}-sample diverse rollout + "
                       "in-loop SSIM/PSNR...", flush=True)
+                k1_before = ssim_psnr_batch_cyclic.launches
                 met = stage("metrics", lambda: metrics_fn(
                     x, seed=seed, device=dev))
+                k1_launches = ssim_psnr_batch_cyclic.launches - k1_before
         if cfg.gp_trigger_flag:
             stage("strips", lambda: _save_trigger_strips(
                 frames.cpu().numpy(), bi))
@@ -258,7 +262,8 @@ def _run_batches(args, cfg, dev, fns, metrics_fn, loader, logger, timer
         best_idx, best_ssim = best_of_n(torch.from_numpy(ssim))
         logger.save_arrays(f"eval_batch{bi}", ssim=ssim, psnr=psnr)
         logger.log(bi, {"ssim_best_mean": float(best_ssim.mean()),
-                        "psnr_mean": float(psnr.mean())}, kind="eval")
+                        "psnr_mean": float(psnr.mean()),
+                        "k1_launches": k1_launches}, kind="eval")
         if not lead:
             logger.log(bi, times, kind="time")
             continue

@@ -16,7 +16,7 @@ rollouts call them under `torch.inference_mode()`, which records no graph.
 from __future__ import annotations
 
 import copy
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -94,6 +94,36 @@ class DVGModel(nn.Module):
     @staticmethod
     def from_gp_layout(y: torch.Tensor) -> torch.Tensor:
         return y.transpose(0, 1)
+
+    def gp_posterior(self, h: torch.Tensor) -> gp_mod.GPPosterior:
+        """h (B, g_dim) → q(f) of the next latent, in task layout (D, B)."""
+        return gp_mod.posterior(self.gp, self.to_gp_layout(h))
+
+    def gp_elbo(self, h: torch.Tensor, h_target: torch.Tensor,
+                num_data: int) -> torch.Tensor:
+        """Per-task ELBO (g_dim,) of h_target (B, g_dim) given h (B, g_dim)."""
+        return gp_mod.elbo(self.gp, self.likelihood, self.to_gp_layout(h),
+                           h_target.transpose(0, 1), num_data)
+
+    def gp_mean(self, h: torch.Tensor) -> torch.Tensor:
+        """Posterior predictive mean of the next latent, (B, g_dim)."""
+        return self.from_gp_layout(self.gp_posterior(h).mean)
+
+    def gp_rsample(self, h: torch.Tensor, full_cov: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A sample of likelihood(gp(h)), (B, g_dim); eps, if given, is
+        (B, g_dim) too (`gp_mod.rsample`)."""
+        y = gp_mod.rsample(self.gp, self.likelihood, self.to_gp_layout(h),
+                           full_cov, generator,
+                           None if eps is None else eps.transpose(0, 1))
+        return self.from_gp_layout(y)
+
+    def gp_variance(self, h: torch.Tensor) -> torch.Tensor:
+        """Predictive variance with the noise, (B, g_dim): the trigger's
+        signal."""
+        return self.from_gp_layout(gp_mod.predictive_variance(
+            self.gp, self.likelihood, self.to_gp_layout(h)))
 
     def gp_cache(self) -> gp_mod.GPCache:
         return gp_mod.build_cache(self.gp, self.likelihood)

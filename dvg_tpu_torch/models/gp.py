@@ -1,7 +1,9 @@
 """The batched whitened SVGP (counterpart of `dvg_tpu/models/gp.py`:
 `gp_init`, `likelihood_init`, `_rbf`, `_kzz_chol`, the differentiable
 `posterior`, `kl_divergence`, `expected_log_prob` and `elbo` that training
-takes gradients through, and `GPCache`/`build_cache`, `cached_mean_var`,
+takes gradients through; the library API on the raw parameters,
+`rbf_cross`, `kernel_diag`, `predictive_variance`, `posterior_full_cov`
+and `rsample`; and `GPCache`/`build_cache`, `cached_mean_var`,
 `cached_rsample` for the rollouts).
 
 `num_tasks` (= g_dim) independent 1-D GPs, each with `num_inducing`
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dvg_tpu_torch.models.layers import f32up
+from dvg_tpu_torch.models.layers import acc_dtype, f32up
 
 JITTER = 1e-4
 NOISE_FLOOR = 1e-4
@@ -79,11 +81,26 @@ def rbf(outputscale: torch.Tensor, lengthscale: torch.Tensor,
     return outputscale[:, None, None] * torch.exp(-0.5 * sq)
 
 
-def kzz_chol(gp: SVGP) -> torch.Tensor:
-    z = f32up(gp.z)
-    kzz = rbf(F.softplus(f32up(gp.raw_outputscale)),
-              F.softplus(f32up(gp.raw_lengthscale)), z, z)
-    eye = torch.eye(z.shape[1], dtype=kzz.dtype, device=kzz.device)
+def rbf_cross(gp: SVGP, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """The GP's scaled RBF cross-covariance, in the inputs' dtype. x1
+    (D,N,1), x2 (D,M,1) → (D,N,M)."""
+    return rbf(F.softplus(gp.raw_outputscale.to(x1.dtype)),
+               F.softplus(gp.raw_lengthscale.to(x1.dtype)), x1, x2)
+
+
+def kernel_diag(gp: SVGP, n: int) -> torch.Tensor:
+    """k(x, x) of the scaled RBF, the outputscale whatever x: (D, n)."""
+    os_ = F.softplus(gp.raw_outputscale)
+    return os_[:, None].expand(os_.shape[0], n)
+
+
+def kzz_chol(gp: SVGP, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """chol(K_ZZ + jitter·I) in `dtype` (default: the parameters', at least
+    f32)."""
+    dt = dtype or acc_dtype(gp.z.dtype)
+    z = gp.z.to(dt)
+    kzz = rbf_cross(gp, z, z)
+    eye = torch.eye(z.shape[1], dtype=dt, device=kzz.device)
     return torch.linalg.cholesky(kzz + JITTER * eye)
 
 
@@ -96,12 +113,11 @@ class GPPosterior(NamedTuple):
     var: torch.Tensor         # (..., D, B), noise not included
 
 
-def posterior(gp: SVGP, x: torch.Tensor) -> GPPosterior:
-    """q(f(x)) for x (..., D, B, 1), leading axes batched (the train step
-    passes its T−1 steps as one): A = K_XZ L⁻ᵀ by a triangular solve
-    against chol(K_ZZ + jitter), mean = μ + A m, var = k(x,x) − ‖A‖² +
-    ‖A L_S‖². Differentiable in every parameter and in x."""
-    l_k = kzz_chol(gp)                                         # (D, M, M)
+def _predictive(gp: SVGP, x: torch.Tensor, dtype: Optional[torch.dtype]
+                ) -> Tuple[torch.Tensor, ...]:
+    """(mean, var, A, A L_S) of q(f(x)) in `dtype` (default: the
+    parameters', at least f32)."""
+    l_k = kzz_chol(gp, dtype)                                  # (D, M, M)
     dt = l_k.dtype
     outputscale = F.softplus(gp.raw_outputscale.to(dt))
     kxz = rbf(outputscale, F.softplus(gp.raw_lengthscale.to(dt)), x.to(dt),
@@ -113,7 +129,72 @@ def posterior(gp: SVGP, x: torch.Tensor) -> GPPosterior:
     a_ls = torch.einsum("...dbm,dmn->...dbn", a, torch.tril(gp.var_chol.to(dt)))
     var = (outputscale[:, None] - torch.sum(a * a, dim=-1)
            + torch.sum(a_ls * a_ls, dim=-1))
-    return GPPosterior(mean, torch.clamp(var, min=1e-10))
+    return mean, torch.clamp(var, min=1e-10), a, a_ls
+
+
+def posterior(gp: SVGP, x: torch.Tensor) -> GPPosterior:
+    """q(f(x)) for x (..., D, B, 1), leading axes batched (the train step
+    passes its T−1 steps as one): A = K_XZ L⁻ᵀ by a triangular solve
+    against chol(K_ZZ + jitter), mean = μ + A m, var = k(x,x) − ‖A‖² +
+    ‖A L_S‖². Differentiable in every parameter and in x."""
+    return GPPosterior(*_predictive(gp, x, None)[:2])
+
+
+def predictive_variance(gp: SVGP, lik: "GaussianLikelihood", x: torch.Tensor
+                        ) -> torch.Tensor:
+    """Variance of likelihood(gp(x)), diag(cov_f) + σ², (D, B): the
+    GP trigger's signal, from the raw parameters."""
+    return posterior(gp, x).var + f32up(lik.noise_variance())[:, None]
+
+
+def posterior_full_cov(gp: SVGP, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean (D, B), full predictive covariance of f (D, B, B)) for x (D, B,
+    1), computed and returned in at least f32 (bf16 inputs are promoted,
+    f64 stays f64): kxx − A·Aᵀ + (A L_S)(A L_S)ᵀ cancels catastrophically
+    near the inducing set, so a bf16 assembly loses the digits no later
+    cast recovers and can leave the covariance indefinite."""
+    ct = acc_dtype(x.dtype)
+    xf = x.to(ct)
+    mean, _, a, a_ls = _predictive(gp, xf, ct)
+    cov = (rbf_cross(gp, xf, xf) - a @ a.transpose(-1, -2)
+           + a_ls @ a_ls.transpose(-1, -2))
+    return mean, cov
+
+
+def rsample(gp: SVGP, lik: "GaussianLikelihood", x: torch.Tensor,
+            full_cov: bool = False,
+            generator: Optional[torch.Generator] = None,
+            eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reparameterized sample of likelihood(gp(x)), (D, B), from the raw
+    parameters. The standard-normal eps (D, B) is given, or drawn from
+    `generator`. By default each batch row is drawn from its marginal;
+    `full_cov` draws one sample correlated across the batch from the full
+    posterior covariance plus σ² and jitter on the diagonal, through a
+    Cholesky in at least f32, cast back to x's dtype."""
+    noise = f32up(lik.noise_variance())[:, None]
+    if full_cov:
+        mean, cov = posterior_full_cov(gp, x)
+        ct = mean.dtype
+        eye = torch.eye(x.shape[1], dtype=ct, device=cov.device)
+        chol = torch.linalg.cholesky(
+            cov + (noise.to(ct)[..., None] + JITTER) * eye)
+        e = _standard_normal(mean, generator, eps)
+        return (mean + (chol @ e[..., None])[..., 0]).to(x.dtype)
+    post = posterior(gp, x)
+    e = _standard_normal(post.mean, generator, eps)
+    return post.mean + torch.sqrt(post.var + noise.to(post.var.dtype)) * e
+
+
+def _standard_normal(like: torch.Tensor, generator: Optional[torch.Generator],
+                     eps: Optional[torch.Tensor]) -> torch.Tensor:
+    """eps, or a draw from `generator`, shaped, typed and placed as `like`."""
+    if eps is None:
+        if generator is None:
+            raise ValueError("rsample needs a generator or an eps tensor")
+        eps = torch.randn(like.shape, generator=generator,
+                          device=generator.device)
+    return eps.to(like.dtype).to(like.device).expand_as(like)
 
 
 def kl_divergence(gp: SVGP) -> torch.Tensor:

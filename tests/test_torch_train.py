@@ -11,7 +11,10 @@ CPU, at the tiny config of tests/test_train.py (T 3, B 2, g_dim 8, rnn 16,
   * the joint loss and its gradients in f64;
   * one whole step in f64: every parameter, BN statistic and Adam moment
     against `make_train_step_fn`;
-  * a bf16 step's losses within the measured drift band;
+  * three f64 steps at epoch_size 1 across both GP learning-rate
+    milestones: the parameters and the GP rate after every step;
+  * a bf16 step's losses within the measured drift band, and its
+    gradient of the decoder's output bias against the f32 step's;
   * TrainState checkpoints across the two packages, an exact resume, and
     --remat giving the same step.
 
@@ -47,6 +50,7 @@ from dvg_tpu.models.dvg import DVGModel as JaxModel
 from dvg_tpu.train import step as JS
 from dvg_tpu.train.checkpoint import load_checkpoint as j_load
 from dvg_tpu.train.checkpoint import save_checkpoint as j_save
+from dvg_tpu.train.optim import gp_lr_schedule as j_gp_lr_schedule
 from dvg_tpu.train.optim import make_optimizers as j_make_optimizers
 from dvg_tpu.train.optim import split_params as j_split
 from dvg_tpu_torch.checkpoint import (_state_dict, load_train_state,
@@ -440,6 +444,54 @@ def test_one_step_matches_make_train_step_fn_f64(ref, port):
         assert (state.model.state_dict()[k] - init[k]).abs().max() > 1e-4, k
 
 
+TRAJECTORY = dict(epoch_size=1, gp_lr_milestones=(2, 3))
+TRAJECTORY_RTOL = 1e-7
+# a weight whose path passes near 0 carries the steps' rounding (~1e-11)
+# beside a value that rtol alone would hold to ~1e-13
+TRAJECTORY_ATOL = 1e-10
+
+
+def test_trajectory_across_gp_milestones_f64(ref):
+    """Three f64 steps on three clips at epoch_size 1 with the GP milestones
+    at epochs 2 and 3, so the GP group's rate decays twice inside the run
+    (2e-3, 2e-4, 2e-5), against make_train_step_fn from the same init.
+    After every step: each parameter of the four groups at rtol 1e-7 and
+    atol 1e-10 (the noise biases of the module docstring within two Adam
+    rates per step taken), and the rate of the GP
+    group's last update equal to dvg_tpu's schedule at its own update
+    count."""
+    cfg, jcfg = ref.cfg.replace(**TRAJECTORY), ref.jcfg.replace(**TRAJECTORY)
+    opts = j_make_optimizers(jcfg)
+    xs = np.random.RandomState(21).rand(3, *ref.x.shape)
+    state = train_state(port_model(ref.params, ref.stats, cfg), cfg)
+    step = make_train_step(cfg)
+    sched = j_gp_lr_schedule(jcfg)
+    rates = []
+    with x64():
+        step_fn = jax.jit(JS.make_train_step_fn(JaxModel(jcfg), jcfg, opts))
+        jstate = jax_state64(jcfg, opts, ref.params, ref.stats)
+        for k, x in enumerate(xs):
+            jstate, _ = step_fn(jstate, jnp.asarray(x))
+            step(state, x)
+            new = JS.TrainState(*(to_np(t) for t in jstate))
+            want = params_from_jax(new.params, new.stats, cfg)
+            for name, p in state.model.named_parameters():
+                got, w = p.detach().numpy(), want[name].numpy()
+                if noise_bias(name):
+                    assert np.abs(got - w).max() <= 2 * LR * (k + 1), name
+                else:
+                    np.testing.assert_allclose(got, w,
+                                               rtol=TRAJECTORY_RTOL,
+                                               atol=TRAJECTORY_ATOL,
+                                               err_msg=name)
+            count = int(new.opt_states["gp_group"][1].count)
+            assert count == state.opts.counts["gp_group"] == 2 * (k + 1)
+            rate = state.opts.adam["gp_group"].param_groups[0]["lr"]
+            assert np.float32(rate) == np.float32(sched((count - 1) // 2))
+            rates.append(rate)
+    np.testing.assert_allclose(rates, [2e-3, 2e-4, 2e-5], rtol=1e-6)
+
+
 def test_bf16_step_losses_within_measured_band(ref):
     """cfg.dtype bfloat16 from the same f32 init: the port's step metrics
     against dvg_tpu's bf16 step. The finetune losses follow the joint
@@ -472,6 +524,52 @@ def test_bf16_step_losses_within_measured_band(ref):
         np.testing.assert_allclose(pm[k].item(), float(v),
                                    rtol=5e-2 if k in latent else 1e-3,
                                    err_msg=k)
+
+
+def _joint_grads(cfg, jcfg, params, stats, x):
+    """The joint pass's gradients of both packages at (params, stats) on x,
+    in cfg.dtype, in the port's names: (port, dvg_tpu)."""
+    model = train_state(port_model(params, stats, cfg, torch.float32),
+                        cfg).model
+    plan = PS.make_plan(cfg, x.shape[0], torch.device("cpu"))
+    loss, *_ = PS.joint_loss(model, torch.from_numpy(x), cfg, plan)
+    loss.backward()
+    jmodel = JaxModel(jcfg)
+    _, g = jax.jit(lambda p, s, xx: jax.value_and_grad(
+        JS.joint_loss, has_aux=True)(p, s, xx, jmodel, jcfg))(
+        *(jax.tree.map(jnp.asarray, t) for t in (params, stats)),
+        jnp.asarray(x))
+    return ({k: p.grad for k, p in model.named_parameters()},
+            params_from_jax(to_np(g), stats, cfg))
+
+
+def test_bf16_output_bias_gradient_tracks_f32(ref):
+    """cfg.dtype bfloat16: the gradient of the decoder's output bias (the
+    one conv bias with no BN after it, so a wrong gradient moves every
+    generated frame) stays within 2% of the f32 step's, with the port's
+    own f32 step as the reference (the two packages' f32 gradients agree
+    to 1e-4 here). dvg_tpu's bf16 gradient is printed beside it: its
+    autodiff sums the bf16 cotangent of the bias add in bf16, which on
+    XLA:CPU rounds partial sums (at the recipe's widths and seeded init,
+    B 8: 89% off f32, the port 0.4%; `python tests/train_side_by_side.py
+    --bias_grads --batch 8`)."""
+    x = ref.x.astype(np.float32)
+    grads = {}
+    for dt in ("float32", "bfloat16"):
+        geom = dict(GEOM, dtype=dt)
+        grads[dt] = _joint_grads(DVGConfig(**geom), JaxConfig(**geom),
+                                 ref.params, ref.stats, x)
+    k = "decoder.final.bias"
+    want = grads["float32"][0][k].double()
+    np.testing.assert_allclose(grads["float32"][1][k].double(), want,
+                               rtol=1e-4)
+    errs = {n: ((grads["bfloat16"][i][k].double() - want).norm()
+                / want.norm()).item() for i, n in enumerate(("port",
+                                                             "dvg_tpu"))}
+    print(f"decoder.final.bias gradient, bf16 against f32: port "
+          f"{errs['port']:.2e}, dvg_tpu {errs['dvg_tpu']:.2e} (|g| "
+          f"{want.norm().item():.3e})")
+    assert errs["port"] <= 2e-2
 
 
 def test_port_train_state_resumes_in_dvg_tpu(ref, tmp_path):

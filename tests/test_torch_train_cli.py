@@ -234,3 +234,27 @@ def test_resume_takes_the_command_lines_optimizer_settings(changed_resume):
         apart = (after_port[k].double() - p_jax.double()).norm()
         assert moved > 0, k
         assert apart <= 0.05 * moved, (k, float(apart / moved))
+
+
+@pytest.mark.parametrize("run", ["soak_smmnist", "soak_smmnist_torch"])
+def test_soak_flags_give_dvg_tpus_config(run):
+    """The training flags a soak's manifest records (the TPU's run of
+    dvg_tpu's CLI and the port's run of its own) build the same config in
+    both CLIs, field for field: the two soaks train one recipe."""
+    import dataclasses
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "runs", run, "manifest.json")) as f:
+        flags = json.load(f)["train_flags"]
+    if "--device" not in flags:
+        flags = flags + ["--device", "cpu"]
+    args = train_cli.build_parser().parse_args(flags)
+    ours = DVGConfig(**{k: v for k, v in vars(args).items()
+                        if k in {f.name for f in dataclasses.fields(DVGConfig)}})
+    jflags = [f for i, f in enumerate(flags)
+              if f != "--device" and (i == 0 or flags[i - 1] != "--device")]
+    jargs = j_train_cli.build_parser().parse_args(jflags)
+    theirs = JaxConfig(**{k: v for k, v in vars(jargs).items()
+                          if k in JaxConfig.__dataclass_fields__})
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.batch_size == 100 and ours.dtype == "bfloat16"
