@@ -8,8 +8,9 @@
     quantity (scripts/soak.py read the (B, S, T') arrays as (S, T', B));
   * experiments/tpu_precision.py's `score` prints a run's epoch plots'
     SSIM by frame and its eval's SSIM by free step beside the blank-frame
-    and copy-last-frame baselines of its clips, and its `tpu_dots()`
-    rounds the operands of f32 contractions to bf16;
+    and copy-last-frame baselines of its clips, its ink profile gives the
+    TPU's plots' dimmed futures, its `--emulate` picks an emulation, and
+    its `tpu_dots()` rounds the operands of f32 contractions to bf16;
   * the soak end to end on the CPU at a tiny geometry;
   * without --device cpu and with no card it raises before any work.
 """
@@ -93,6 +94,37 @@ def test_compare_prints_curves_and_baselines():
             "of 5 0.518 0.602 0.512") in out
     assert "t0 0.491 (0.684 / 0.784)" in out         # step 0 and baselines
     assert "mean over steps 0.5088 (blank 0.6909, copy-last 0.5539)" in out
+
+
+@pytest.mark.parametrize("epoch,first,free", [(0, 0.476, 0.442),
+                                               (10, 0.612, 0.730),
+                                               (40, 0.652, 0.636)])
+def test_ink_profile_of_the_tpus_plots(epoch, first, free):
+    """The TPU's epoch plots dim their futures: mean predicted over mean
+    ground-truth intensity, all 5 samples of the 10 clips, at the first
+    free frame and over the free frames (5-14); the context frames are
+    the ground truth's own."""
+    t = tpu_precision()
+    tiles = t.plot_tiles(os.path.join(TPU_RUN, "model",
+                                      f"sample_{epoch}.png"))
+    ink = t.ink_profile(tiles)
+    np.testing.assert_allclose(ink[:5], 1.0, rtol=1e-6)
+    assert round(float(ink[5]), 3) == first
+    assert round(float(tiles[:, 1:, 5:].mean() / tiles[:, 0, 5:].mean()),
+                 3) == free
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--emulate", "bias", "m", "--x"], ("bias", ["m", "--x"])),
+    (["--emulate", "dots", "m"], ("dots", ["m"])),
+    (["m", "--x"], ("dots", ["m", "--x"]))])
+def test_emulate_flag_selects_the_emulation(argv, want):
+    assert tpu_precision()._emulation(argv) == want
+
+
+def test_emulate_flag_refuses_others():
+    with pytest.raises(SystemExit, match="--emulate"):
+        tpu_precision()._emulation(["--emulate", "tpu", "m"])
 
 
 def test_tpu_dots_rounds_f32_operands():

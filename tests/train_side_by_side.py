@@ -22,7 +22,9 @@ ulp-vs-port do.
 
 `--bias_grads` trains nothing: it prints, for every bias, how far each
 package's bf16 joint-pass gradient lies from the port's f32 gradient, at
-the seeded init, on the first training batch.
+the seeded init, on the first training batch, and the port's again under
+experiments/tpu_precision.py's `xla_bias_sum()` with its distance from
+dvg_tpu's.
 
 The GP schedule's epoch is a sixth of the run, so that both milestones
 (epochs 3 and 5) fall inside it. XLA:CPU takes
@@ -113,44 +115,84 @@ def eval_profile(model: DVGModel, cfg: DVGConfig, x, seed: int) -> dict:
     return dict(diverse=dm.mean(dim=(0, 2)).tolist(), posterior=ps)
 
 
+def first_train_batch(cfg: DVGConfig, batch: int, seed: int) -> np.ndarray:
+    loader = Loader(load_dataset(cfg, seq_len=cfg.n_eval, split="train"),
+                    batch, seed=seed, num_threads=1, device="cpu")
+    try:
+        return np.asarray(loader.next_batch(0)).astype(np.float32)
+    finally:
+        loader.stop()
+
+
+def port_pass(state_dict: dict, cfg: DVGConfig, x: np.ndarray) -> tuple:
+    """The port's joint pass at `state_dict` on x → (its loss and metrics,
+    its gradients by name)."""
+    model = DVGModel(cfg, device="cpu")
+    model.load_state_dict(state_dict)
+    model = train_state(model, cfg).model
+    plan = PS.make_plan(cfg, x.shape[0], torch.device("cpu"))
+    loss, metrics, *_ = PS.joint_loss(model, torch.from_numpy(x), cfg, plan)
+    loss.backward()
+    return ({"loss": loss.detach(),
+             **{k: v.detach() for k, v in metrics.items()}},
+            {k: p.grad for k, p in model.named_parameters()})
+
+
+def jax_grads(state_dict: dict, cfg: DVGConfig, x: np.ndarray) -> dict:
+    """dvg_tpu's joint-pass gradients at `state_dict` on x, by the port's
+    names."""
+    jcfg = JaxConfig.from_dict(cfg.to_dict())
+    params, stats = params_to_jax(state_dict, cfg)
+    jmodel = JaxModel(jcfg)
+    _, g = jax.jit(lambda p, s, xx: jax.value_and_grad(
+        JS.joint_loss, has_aux=True)(p, s, xx, jmodel, jcfg))(
+        *(jax.tree.map(jnp.asarray, t) for t in (params, stats)),
+        jnp.asarray(x))
+    return params_from_jax(jax.tree.map(np.asarray, g), stats, cfg)
+
+
 def bias_grads(state_dict: dict, batch: int, seed: int) -> str:
     """Per bias: ‖g − g32‖/‖g32‖ of each package's bf16 joint-pass
-    gradient, g32 the port's f32 one, on the first training batch."""
-    grads = {}
-    for dt in ("float32", "bfloat16"):
-        geom = dict(RECIPE, batch_size=batch, dtype=dt, seed=seed)
-        cfg, jcfg = DVGConfig(**geom), JaxConfig(**geom)
-        model = DVGModel(cfg, device="cpu")
-        model.load_state_dict(state_dict)
-        params, stats = params_to_jax(model.state_dict(), cfg)
-        loader = Loader(load_dataset(cfg, seq_len=cfg.n_eval,
-                                     split="train"), batch, seed=seed,
-                        num_threads=1, device="cpu")
-        try:
-            x = np.asarray(loader.next_batch(0)).astype(np.float32)
-        finally:
-            loader.stop()
-        state = train_state(model, cfg)
-        plan = PS.make_plan(cfg, x.shape[0], torch.device("cpu"))
-        PS.joint_loss(state.model, torch.from_numpy(x), cfg, plan)[0] \
-            .backward()
-        jmodel = JaxModel(jcfg)
-        _, g = jax.jit(lambda p, s, xx: jax.value_and_grad(
-            JS.joint_loss, has_aux=True)(p, s, xx, jmodel, jcfg))(
-            *(jax.tree.map(jnp.asarray, t) for t in (params, stats)),
-            jnp.asarray(x))
-        grads[dt] = ({k: p.grad for k, p in state.model.named_parameters()},
-                     params_from_jax(jax.tree.map(np.asarray, g), stats, cfg))
+    gradient, g32 the port's f32 one, on the first training batch; then
+    the port's again under experiments/tpu_precision.py's
+    `xla_bias_sum()`, and that gradient's distance ‖g − g_jax‖/‖g_jax‖
+    from dvg_tpu's bf16 one."""
+    cfgs = {dt: DVGConfig(**dict(RECIPE, batch_size=batch, dtype=dt,
+                                 seed=seed))
+            for dt in ("float32", "bfloat16")}
+    x = first_train_batch(cfgs["float32"], batch, seed)
+    want = port_pass(state_dict, cfgs["float32"], x)[1]
+    got = {"dvg_tpu": jax_grads(state_dict, cfgs["bfloat16"], x),
+           "port": port_pass(state_dict, cfgs["bfloat16"], x)[1]}
+    tpu_precision().xla_bias_sum()
+    emu = got["port, xla_bias_sum"] = port_pass(state_dict,
+                                                cfgs["bfloat16"], x)[1]
+
+    def dist(a, b):
+        return ((a.double() - b.double()).norm()
+                / max(b.double().norm().item(), 1e-30)).item()
+
     lines = []
-    for k, want in grads["float32"][0].items():
+    for k, w in want.items():
         if not k.endswith(("bias", "bias_ih", "bias_hh")):
             continue
-        n = want.double().norm().item()
-        err = [(grads["bfloat16"][i][k].double() - want.double()).norm()
-               .item() / max(n, 1e-30) for i in (1, 0)]
-        lines.append(f"{k:36s} |g32| {n:.3e}  bf16 off f32: dvg_tpu "
-                     f"{err[0]:.3g}  port {err[1]:.3g}")
+        lines.append(f"{k:36s} |g32| {w.double().norm().item():.3e}  bf16 "
+                     "off f32: " + "  ".join(f"{n} {dist(g[k], w):.3g}"
+                                             for n, g in got.items())
+                     + "  | port, xla_bias_sum off dvg_tpu "
+                     f"{dist(emu[k], got['dvg_tpu'][k]):.3g}")
     return "\n".join(lines)
+
+
+def tpu_precision():
+    """experiments/tpu_precision.py as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "experiments", "tpu_precision.py")
+    spec = importlib.util.spec_from_file_location("tpu_precision", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main(argv=None) -> int:
