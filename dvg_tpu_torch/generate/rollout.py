@@ -41,6 +41,14 @@ be tensors. The entries prepare afresh on every call, so a model that
 keeps training (the training CLI's plots) is always rolled with its
 current weights.
 
+Spans (`utils.profiling.span`): `dvg.eval.prepare` around `prepare()`;
+in every rollout `dvg.eval.context` (the warm-up and the k-fold tiling),
+then per free step `dvg.eval.encode`, `dvg.eval.lstm`, `dvg.eval.gp_draw`
+(a fork's draw with its eps, or mean mode's posterior mean) and
+`dvg.eval.decode`, each closed before the step's frames are yielded;
+`diverse_metrics` adds `dvg.eval.score` per step. `gp_trigger`'s own loop
+has none.
+
 Sharded eval departs from `dvg_tpu` here, on purpose. `dvg_tpu`'s
 sample-sharded run folds its key by device (dvg_tpu/parallel/mesh.py:
 121-126), so it draws other futures than its unsharded run and its CLI
@@ -65,6 +73,7 @@ from dvg_tpu_torch.models.rnn import Hidden
 from dvg_tpu_torch.ops.ssim import (finn_ssim_psnr_batch, ssim_gt_precompute,
                                     ssim_psnr_batch_pre)
 from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
+from dvg_tpu_torch.utils.profiling import span
 
 FORK_EVERY = 15
 PLOT_FORK_STEP = 10      # the train-time plot forks once, at step 10
@@ -191,6 +200,7 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
     fork_15 = fork_schedule(n_past, n_eval)
     fork_10 = np.arange(n_past, n_eval) == PLOT_FORK_STEP
 
+    @span("dvg.eval.prepare")
     @torch.no_grad()
     def prepare() -> Prepared:
         """Fold eval-mode BN into the convs and build the GP cache, both in
@@ -236,24 +246,30 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
         compute dtype), as one merged sample-major (k·B) batch; yields
         each step's frames (k·B, H, W, C) in the compute dtype."""
         m = p.model
-        hidden_b, skip_b, x_in_b = _context_phase(m, x, n_past)
-        hidden = tuple(a.repeat(1, k, 1) for a in hidden_b)
-        x_in = x_in_b.repeat(k, 1, 1, 1)
-        # frozen skips: the skip halves are computed at batch B and tiled
-        # ONCE, so the in-loop add is shape-equal
-        skip_pre = None if refresh else [
-            p.repeat(k, 1, 1, 1) for p in m.decode_skip_pre(skip_b)]
+        with span("dvg.eval.context"):
+            hidden_b, skip_b, x_in_b = _context_phase(m, x, n_past)
+            hidden = tuple(a.repeat(1, k, 1) for a in hidden_b)
+            x_in = x_in_b.repeat(k, 1, 1, 1)
+            # frozen skips: the skip halves are computed at batch B and
+            # tiled ONCE, so the in-loop add is shape-equal
+            skip_pre = None if refresh else [
+                p.repeat(k, 1, 1, 1) for p in m.decode_skip_pre(skip_b)]
         for t in range(n_free):
-            h, skips_new = m.encode(x_in)
-            latent, hidden = m.predict_latent(hidden, h)
+            with span("dvg.eval.encode"):
+                h, skips_new = m.encode(x_in)
+            with span("dvg.eval.lstm"):
+                latent, hidden = m.predict_latent(hidden, h)
             if mean_mode:
-                mean, _ = gp_mod.cached_mean_var(p.cache,
-                                                 m.to_gp_layout(latent))
-                latent = m.from_gp_layout(mean)
+                with span("dvg.eval.gp_draw"):
+                    mean, _ = gp_mod.cached_mean_var(p.cache,
+                                                     m.to_gp_layout(latent))
+                    latent = m.from_gp_layout(mean)
             elif fork[t]:
-                latent = draw(p, h, eps_at(t), k)
-            x_in = (m.decode(latent, skips_new) if refresh
-                    else m.decode_hoisted(latent, skip_pre))
+                with span("dvg.eval.gp_draw"):
+                    latent = draw(p, h, eps_at(t), k)
+            with span("dvg.eval.decode"):
+                x_in = (m.decode(latent, skips_new) if refresh
+                        else m.decode_hoisted(latent, skip_pre))
             yield x_in
 
     def draw(p: Prepared, h: torch.Tensor, eps: torch.Tensor, groups: int
@@ -413,8 +429,11 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
         # metrics against the f32 truth
         score = step_metrics(x[n_past:n_eval].float().contiguous())
         x = x.to(dtype)
-        out = torch.stack([score(t, x_out) for t, x_out in enumerate(
-            rollout(p, x, s_n, fork_15, eps_at))], dim=2)
+        scores = []
+        for t, x_out in enumerate(rollout(p, x, s_n, fork_15, eps_at)):
+            with span("dvg.eval.score"):
+                scores.append(score(t, x_out))
+        out = torch.stack(scores, dim=2)
         return {"ssim": out[0], "psnr": out[1], "mse": out[2]}
 
     @torch.inference_mode()

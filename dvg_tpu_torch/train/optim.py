@@ -29,6 +29,7 @@ from torch import nn
 
 from dvg_tpu_torch.config import DVGConfig
 from dvg_tpu_torch.convert import params_from_jax, params_to_jax
+from dvg_tpu_torch.utils.profiling import span
 
 MODULE_GROUPS = ("frame_predictor", "encoder", "decoder", "gp_group")
 # optimizer group → the DVGModel children it steps
@@ -95,6 +96,7 @@ class Optimizers:
         for g in groups or MODULE_GROUPS:
             self.adam[g].zero_grad(set_to_none=True)
 
+    @span("dvg.train.optim")
     def step(self, group: str) -> None:
         """One Adam update of `group`. A parameter the pass did not reach
         takes a zero gradient, as in optax, so its moments still decay."""

@@ -50,6 +50,7 @@ from dvg_tpu_torch.models import layers as L
 from dvg_tpu_torch.models.dvg import DVGModel
 from dvg_tpu_torch.parallel.collectives import all_reduce_mean_, world_size
 from dvg_tpu_torch.train.optim import MODULE_GROUPS, Optimizers
+from dvg_tpu_torch.utils.profiling import span
 
 VARIANTS = 3      # decoded latents per step: LSTM prediction, target, GP mean
 
@@ -309,10 +310,17 @@ def make_train_step(cfg: DVGConfig, group=None) -> Callable[
     group's gradients are averaged over the ranks in one flat all-reduce
     before its update, and the metrics are the ranks' mean. Every rank
     ends the step with the same weights, BN statistics and Adam state: the
-    step of one rank on the global batch."""
+    step of one rank on the global batch.
+
+    Spans (`utils.profiling.span`): `dvg.train.step` around the step;
+    inside it `dvg.train.joint.forward` and `.backward`, `dvg.train.ft.encode`,
+    `dvg.train.ft.lstm` and `dvg.train.ft.gp` (each finetune loss and its
+    backward), one `dvg.train.bn_fold` per pass, one `dvg.train.optim` per
+    group update, and `dvg.train.allreduce` under a group."""
     plans: Dict[Tuple[int, torch.device], Plan] = {}
     sync = group is not None
 
+    @span("dvg.train.allreduce")
     def mean_grads(opts: Optimizers, g: str) -> None:
         """Average group g's gradients over the ranks (a parameter the pass
         did not reach takes a zero gradient first, as Optimizers.step
@@ -323,6 +331,7 @@ def make_train_step(cfg: DVGConfig, group=None) -> Callable[
                 p.grad = torch.zeros_like(p)
         all_reduce_mean_([p.grad for p in params], group)
 
+    @span("dvg.train.step")
     def step_fn(state: TrainState, x) -> Tuple[TrainState, Metrics]:
         model, opts = state.model, state.opts
         x = torch.as_tensor(x, device=model.device, dtype=model.gp.z.dtype)
@@ -334,41 +343,50 @@ def make_train_step(cfg: DVGConfig, group=None) -> Callable[
 
         # ---- pass 1: joint ------------------------------------------------
         opts.zero_grad()
-        loss, metrics, enc_stats, dec_stats = joint_loss(model, x, cfg, plan,
-                                                         group)
-        loss.backward()
-        fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
-        fold_stats(model.decoder.bn_blocks(), dec_stats, plan.dec_w,
-                   plan.dec_decay)
+        with span("dvg.train.joint.forward"):
+            loss, metrics, enc_stats, dec_stats = joint_loss(model, x, cfg,
+                                                             plan, group)
+        with span("dvg.train.joint.backward"):
+            loss.backward()
+        with span("dvg.train.bn_fold"):
+            fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
+            fold_stats(model.decoder.bn_blocks(), dec_stats, plan.dec_w,
+                       plan.dec_decay)
         for g in MODULE_GROUPS:
             if sync:
                 mean_grads(opts, g)
             opts.step(g)
 
         if cfg.ft:
-            h_all, enc_stats = finetune_encode(model, x, plan, group)
+            with span("dvg.train.ft.encode"):
+                h_all, enc_stats = finetune_encode(model, x, plan, group)
             # ---- pass 2: LSTM only ----------------------------------------
-            opts.zero_grad("frame_predictor")
-            ft_latent = lstm_finetune_loss(model, h_all, plan)
-            ft_latent.backward()
-            fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
+            with span("dvg.train.ft.lstm"):
+                opts.zero_grad("frame_predictor")
+                ft_latent = lstm_finetune_loss(model, h_all, plan)
+                ft_latent.backward()
+            with span("dvg.train.bn_fold"):
+                fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
             if sync:
                 mean_grads(opts, "frame_predictor")
             opts.step("frame_predictor")
             # ---- pass 3: GP only; the reference re-encodes here, so the
             # shared encode's statistics fold a second time ---------------
-            opts.zero_grad("gp_group")
-            ft_gp = gp_finetune_loss(model, h_all,
-                                     x.shape[1] * ranks(group))
-            ft_gp.backward()
-            fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
+            with span("dvg.train.ft.gp"):
+                opts.zero_grad("gp_group")
+                ft_gp = gp_finetune_loss(model, h_all,
+                                         x.shape[1] * ranks(group))
+                ft_gp.backward()
+            with span("dvg.train.bn_fold"):
+                fold_stats(enc_blocks, enc_stats, plan.enc_w, plan.enc_decay)
             if sync:
                 mean_grads(opts, "gp_group")
             opts.step("gp_group")
             metrics.update(ft_mse_latent=ft_latent.detach(),
                            ft_gp_nll=ft_gp.detach())
         if sync:
-            all_reduce_mean_(list(metrics.values()), group)
+            with span("dvg.train.allreduce"):
+                all_reduce_mean_(list(metrics.values()), group)
         state.step += 1
         return state, metrics
 
