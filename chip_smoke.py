@@ -17,6 +17,12 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
   3. K2 (the same template, one-to-one) against its plain version at 5000
      image pairs of H×H×3, H = 64 and 128, pred bf16 and f32, and on
      identical images; the same timings;
+  3b. K3 (csrc/conv_epilogue.cu, the conv epilogue) against its plain
+     version at the VGG-128 eval's largest maps, every activation, with
+     and without the skip half (leaky and none bitwise equal, tanh and
+     sigmoid within 1 bf16 ulp; the largest |got - plain| is the entry's
+     max_abs_err); times the kernel, its wrapper, the plain version and
+     the stock chain it replaced, with the HBM bound;
   4. checkpoint: writes the headline DCGAN-64 model from seeded weights in
      the dvg_tpu format and reads it back, every leaf equal; the later
      phases load their model from this file;
@@ -31,7 +37,9 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
   7. the main path: the bf16 headline eval protocol of `diverse_metrics`
      (DCGAN-64, S 100, B 50, n_past 5, n_eval 105) on the checkpoint's
      weights — one warm-up run, then one timed run with every kernel's
-     launch count set to 0 just before and read just after;
+     launch count set to 0 just before and read just after: K1 once per
+     free step, K3 once per folded conv (`k3_per_call`: 5 a pass, 1,005 a
+     call);
   8. the rest of generation at that width: `posterior`, `gp_trigger`, and
      the eval CLI's re-roll of 40 (sample, row) pairs (10 rows × [best + 3
      random]) scored by K2 — the K2 path, its counts set to 0 just before
@@ -75,8 +83,9 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      seeded weights written as a dvg_tpu checkpoint and read back, the
      protocol (S 100, n_past 5, n_eval 105) on VGG-128 and DCGAN-128 at
      bench.py's 128 px batch 8 and on VGG-64 at batch 50: ms and frames/s
-     of one timed run after a warm-up, K1 launches (100, counts set to 0
-     just before and read just after), peak memory, the card's busy share
+     of one timed run after a warm-up, K1 launches (100) and K3's
+     (`k3_per_call`: 2,814 on VGG-128), counts set to 0 just before and
+     read just after, peak memory, the card's busy share
      and K1's µs per launch on the model's frames, device time by kernel
      group, and the bound from the FLOPs counted; the VGG-128 train step
      (bf16, B 8, T 15, --remat) over 20 pipelined steps, and one profiled; (c) the training CLI at --model vgg
@@ -111,8 +120,9 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      S 50 per rank, B 50, in f32 against one process (SSIM 1e-5, PSNR 1e-3
      dB, MSE rtol 1e-5) and in bf16 timed (ms per rank, frames/s of the
      pair, peak per rank) with its drift from phase 7's run (CLI_TOL's bf16
-     band), K1 launched 100 times per rank with its count set to 0 just
-     before; (d) the training CLI --mesh 2 --dist_backend gloo at the
+     band), K1 launched 100 times and K3 1,005 times per rank with their
+     counts set to 0 just before (K3 counted in (a) and (c) too); (d) the
+     training CLI --mesh 2 --dist_backend gloo at the
      bench's geometry on smmnist in bf16, 2 epochs of 5 steps, then a
      resumed third, each rank writing to its own directory (rank 1's stays
      empty), then the eval CLI --mesh_samples 2 (1 batch) on rank 0's
@@ -134,10 +144,12 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      sharded artifact runs on two gloo ranks sharing the card; then a
      fresh process calls the live entries, and after it the artifacts'
      process calls the artifacts, both with cuDNN's autotuner off: ms per
-     call by CUDA events over SERVE_REPS calls after a warm-up, K1's and
-     K2's counts set to 0 just before and read just after. Gates: K1 100
-     launches per call from inside the diverse_metrics artifact (its µs
-     per launch there), K2 none; bf16 diverse_metrics within
+     call by CUDA events over SERVE_REPS calls after a warm-up, K1's,
+     K2's and K3's counts set to 0 just before and read just after. Gates:
+     K1 100 and K3 1,005 launches per call from inside the diverse_metrics
+     artifact (K1's µs per launch there), K2 none, each artifact's K3
+     count equal to its live entry's, the sharded artifact's per rank at
+     the cut depth; bf16 diverse_metrics within
      SERVE_BF16_TOL of the live entry, posterior's and gp_trigger's
      frames within SERVE_BF16_FRAME_ATOL, gp_trigger's decisions all
      equal; the sharded f32 artifact within SERVE_F32_TOL of the live
@@ -257,6 +269,9 @@ PATH_TOL = dict(ssim_atol=1e-4, psnr_atol=1e-3, mse_rtol=1e-4)
 # a re-roll scored by K2 against the same future scored by K1 in the loop
 REROLL_TOL = dict(ssim_atol=1e-5, psnr_atol=1e-3, mse_rtol=1e-4)
 FRAME_ATOL = 1e-4
+# K3's launches per encode or decode pass of each backbone (its folded convs)
+K3_PER_PASS = {("dcgan", 64): 5, ("dcgan", 128): 6, ("vgg", 64): 11,
+               ("vgg", 128): 14}
 
 # [import]: reference-schema .pth files of each backbone at a tiny width
 # and of DCGAN-64 at the bench's (BAIR: C 3, n_past 2), the BAIR data
@@ -463,7 +478,13 @@ def spills(resources) -> list:
 
 def kernel_label(mangled: str) -> str:
     """'ssim_kernel bf16 C3 G2' etc. for a mangled ssim_kernel<T, C, G>
-    instance (K1 runs the G2 instances, K2 the G1 instances)."""
+    instance (K1 runs the G2 instances, K2 the G1 instances); 'epilogue
+    bf16 act 1 pre 1 vec 1' etc. for K3's instances."""
+    m = re.search(r"dvg_elementwise_epilogueI(13__nv_bfloat16|f)Li(\d)ELb"
+                  r"([01])ELb([01])E", mangled)
+    if m is not None:
+        return (f"epilogue {'f32' if m.group(1) == 'f' else 'bf16'} act "
+                f"{m.group(2)} pre {m.group(3)} vec {m.group(4)}")
     m = re.search(r"ssim_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m is None:
         return mangled
@@ -591,6 +612,82 @@ def phase_k2(resources):
     for entry in ("ssim_kernel bf16 C3 G1", "ssim_kernel f32 C3 G1"):
         print(f"[k2] ptxas {entry}: {'; '.join(resources.get(entry, ['?']))}")
     return result
+
+
+def phase_k3(resources):
+    """K3 (the conv epilogue) against its plain version at the VGG-128
+    eval's largest map, (800, 64, 128, 128) bf16 channels_last, with and
+    without the skip half, and at its 3-channel final conv, for every
+    activation; times the kernel beside its HBM bound (y and pre read once,
+    out written once), the plain version and the stock chain the eval path
+    ran before it (cuDNN's bias add_ and leaky_relu; with the skip half,
+    the adds and leaky_relu) as a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from dvg_tpu_torch.ops import epilogue as E
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(3)
+    result, worst = None, 0.0
+    for shape in ((800, 64, 128, 128), (800, 3, 128, 128)):
+        tag = f"[k3 {shape[1]}ch]"
+        y, pre = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            for _ in range(2))
+        bias = torch.randn(shape[1], generator=g, device=dev).to(
+            torch.bfloat16)
+        for p in (None, pre):
+            for act in E.ACTS:
+                got = E.conv_epilogue(y, bias, p, act)
+                ref = E.conv_epilogue_plain(y, bias, p, act)
+                d = (got.float() - ref.float()).abs()
+                ulp = (d / (2.0 ** -7 * ref.float().abs()).clamp(
+                    min=1e-38)).max().item()
+                exact = torch.equal(got, ref)
+                err = d.max().item()
+                worst = max(worst, err)
+                del got, ref, d
+                print(f"{tag} {tuple(shape)} bf16 pre {p is not None} "
+                      f"{act}: bitwise {exact}, max|d| {err:.3e}, worst "
+                      f"{ulp:.2f} of 2^-7 relative")
+                check(exact if act in ("none", "leaky_relu") else ulp <= 1,
+                      f"K3 {shape} {act} disagrees with its plain version")
+            act = "leaky_relu" if shape[1] > 3 else "sigmoid"
+            k_ms = cuda_ms(lambda: E.launch(y, bias, p, act, 1), 20)
+            w_ms = cuda_ms(lambda: E.conv_epilogue(y, bias, p, act), 20)
+            p_ms = cuda_ms(lambda: E.conv_epilogue_plain(y, bias, p, act), 3)
+            b3 = bias[:, None, None]
+            if p is None:               # y is spent: it is remade below
+                stock = (lambda: E.activate(y.add_(b3), act))
+            else:
+                stock = (lambda: E.activate(y + p + b3, act))
+            s_ms = cuda_ms(stock, 10)
+            nbytes = y.numel() * y.element_size() * (2 if p is None else 3)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{tag} pre {p is not None} {act}: kernel "
+                  f"{k_ms * 1e3:.1f} us/launch  wrapper {w_ms * 1e3:.1f} us  "
+                  f"plain {p_ms * 1e3:.1f} us  stock chain "
+                  f"{s_ms * 1e3:.1f} us  bound {b_ms * 1e3:.1f} us by bytes "
+                  f"({nbytes / 1e9:.2f} GB)  = {b_ms / k_ms:.1%} of bound")
+            if result is None:
+                result = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by="bytes")
+            y = torch.randn(shape, generator=g, device=dev).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        del y, pre
+        torch.cuda.empty_cache()
+    for entry, lines in resources.items():
+        if "epilogue" in entry:
+            print(f"[k3] ptxas {entry}: {'; '.join(lines)}")
+    return dict(result, max_abs_err=worst)
+
+
+def k3_per_call(cfg) -> int:
+    """K3's launches in one diverse_metrics call of `cfg`'s folded model:
+    one per conv of the context's encode, then of one encode and one
+    decode per free step (each pass runs K3_PER_PASS convs: the encoder's
+    blocks and head, or the decoder's head, blocks and final conv)."""
+    per_pass = K3_PER_PASS[cfg.model, cfg.image_width]
+    return per_pass * (1 + 2 * (cfg.n_eval - cfg.n_past))
 
 
 def phase_checkpoint(directory: str) -> str:
@@ -820,6 +917,7 @@ def phase_main(ckpt: str):
     import torch
     from dvg_tpu_torch.checkpoint import load_model
     from dvg_tpu_torch.generate.rollout import best_of_n, make_rollout_fns
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                              ssim_psnr_batch_images)
     torch.backends.cudnn.benchmark = True
@@ -839,12 +937,14 @@ def phase_main(ckpt: str):
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     ssim_psnr_batch_cyclic.launches = 0
     ssim_psnr_batch_images.launches = 0
+    conv_epilogue.launches = 0
     t0 = time.perf_counter()
     start.record()
     out = fns.diverse_metrics(x, seed=MAIN_SEED)
     end.record()
     torch.cuda.synchronize()
     launches = ssim_psnr_batch_cyclic.launches
+    k3 = conv_epilogue.launches
     host_s = time.perf_counter() - t0
     ms = start.elapsed_time(end)
     frames = s_n * n_free * b
@@ -854,18 +954,20 @@ def phase_main(ckpt: str):
           f"per-plane kernels, PERF.md §5), {host_s * 1e3:.1f} ms host, "
           f"{frames / (ms / 1e3):,.0f} frames/s; peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"K1 launches {launches}; finite {finite}")
+          f"K1 launches {launches}; K3 launches {k3}; finite {finite}")
     for k, v in out.items():
         check(tuple(v.shape) == (s_n, n_free, b), f"{k} shape {v.shape}")
     check(finite, "non-finite metric in the main path")
     check(launches == n_free, f"K1 launched {launches} times, not {n_free}")
+    check(k3 == k3_per_call(cfg),
+          f"K3 launched {k3} times, not {k3_per_call(cfg)}")
     idx, best = best_of_n(out["ssim"].permute(2, 0, 1))
     check(bool(((idx >= 0) & (idx < s_n)).all()), "best-of-N index range")
     print(f"[main] mean ssim {out['ssim'].mean().item():.5f}  mean psnr "
           f"{out['psnr'].mean().item():.4f} dB  mean mse "
           f"{out['mse'].mean().item():.5f}  best-of-N mean ssim "
           f"{best.mean().item():.5f}")
-    return cfg, fns, x, out, launches
+    return cfg, fns, x, out, launches, k3
 
 
 def phase_gen_full(cfg, fns, x, out):
@@ -1779,6 +1881,7 @@ def phase_backbones_full(tmp: str) -> dict:
     from dvg_tpu_torch.config import DVGConfig
     from dvg_tpu_torch.generate.rollout import make_rollout_fns
     from dvg_tpu_torch.models.dvg import DVGModel
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                              ssim_psnr_batch_images)
     torch.backends.cudnn.benchmark = True
@@ -1807,9 +1910,11 @@ def phase_backbones_full(tmp: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ssim_psnr_batch_cyclic.launches = 0
         ssim_psnr_batch_images.launches = 0
+        conv_epilogue.launches = 0
         out, ms = events_ms(lambda: fns.diverse_metrics(x, seed=MAIN_SEED))
         launches = (ssim_psnr_batch_cyclic.launches,
                     ssim_psnr_batch_images.launches)
+        k3 = conv_epilogue.launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         frames = s_n * n_free * b
         finite = all(bool(torch.isfinite(v).all()) for v in out.values())
@@ -1819,6 +1924,8 @@ def phase_backbones_full(tmp: str) -> dict:
         check(finite, f"{name}: a protocol metric is not finite")
         check(launches == (n_free, 0), f"{name}: K1, K2 launched "
               f"{launches} times, want ({n_free}, 0)")
+        check(k3 == k3_per_call(cfg2), f"{name}: K3 launched {k3} times, "
+              f"want {k3_per_call(cfg2)}")
         kernels, busy, span = device_kernels(
             lambda: fns.diverse_metrics(x, seed=4))
         k1 = [e.time_range.elapsed_us() for e in kernels
@@ -1833,7 +1940,8 @@ def phase_backbones_full(tmp: str) -> dict:
         b_ms = flops / BF16_FLOP_PER_S * 1e3
         print(f"[backbones full] {name} bf16 S {s_n} B {b} n_free {n_free} "
               f"({CARD_LINE}): {ms:.1f} ms/protocol, {frames / (ms / 1e3):,.0f}"
-              f" frames/s; K1 launches {launches[0]}, K2 {launches[1]}; "
+              f" frames/s; K1 launches {launches[0]}, K2 {launches[1]}, "
+              f"K3 {k3}; "
               f"peak mem {peak:.2f} GiB; card busy {busy / span:.1%} of the "
               f"profiled run ({len(kernels)} kernels); K1 on the model's "
               f"{w} px frames {k1_us:.1f} us/launch ({len(k1)} launches "
@@ -1849,7 +1957,7 @@ def phase_backbones_full(tmp: str) -> dict:
               f"{out['psnr'].mean().item():.4f} dB  mean mse "
               f"{out['mse'].mean().item():.5f}")
         results[name] = dict(ms=ms, fps=frames / (ms / 1e3), k1_us=k1_us,
-                             launches=launches[0])
+                             launches=launches[0], k3=k3)
         del fns, loaded, x, out, kernels
         torch.cuda.empty_cache()
     return results
@@ -2345,6 +2453,7 @@ def _job_nccl1(rank, n, tmp):
     import torch
     import torch.distributed as dist
     from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
     from dvg_tpu_torch.parallel import make_mesh, shard_diverse_metrics
     from dvg_tpu_torch.parallel import dryrun as D
@@ -2359,10 +2468,11 @@ def _job_nccl1(rank, n, tmp):
     one.pop("state")
     fns = _tiny_eval_fns(spec, DIST_TINY_EVAL["nsample"])
     sharded = shard_diverse_metrics(fns, make_mesh([("sample", 1)]))
-    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_cyclic.launches = conv_epilogue.launches = 0
     got = sharded(spec["x_eval"], seed=DIST_TINY_SEED, device=CARD)
     torch.cuda.synchronize()
     launches = ssim_psnr_batch_cyclic.launches
+    k3 = conv_epilogue.launches
     plain = fns.diverse_metrics(spec["x_eval"], seed=DIST_TINY_SEED,
                                 device=CARD)
     # metrics and gradients at 1e-12; the weights, BN statistics and Adam
@@ -2375,28 +2485,30 @@ def _job_nccl1(rank, n, tmp):
                  if k in ("state", "moments")})
     return dict(step_errors=errs,
                 eval_errs=max_errs(_metrics_list(got), _metrics_list(plain)),
-                launches=launches)
+                launches=launches, k3=k3)
 
 
 def _timed_sharded(metrics, x, seed):
-    """One sharded protocol after a barrier, K1's count set to 0 just
-    before → (metrics on the CPU, ms by CUDA events, K1 launches, peak
-    GiB)."""
+    """One sharded protocol after a barrier, K1's and K3's counts set to 0
+    just before → (metrics on the CPU, ms by CUDA events, K1 launches, peak
+    GiB, K3 launches)."""
     import torch
     import torch.distributed as dist
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
     dist.barrier()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_cyclic.launches = conv_epilogue.launches = 0
     start.record()
     out = metrics(x, seed=seed, device=CARD)
     end.record()
     torch.cuda.synchronize()
     return ({k: v.cpu() for k, v in out.items()}, start.elapsed_time(end),
             ssim_psnr_batch_cyclic.launches,
-            torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.max_memory_allocated() / 2**30,
+            conv_epilogue.launches)
 
 
 def _job_gloo2(rank, n, tmp):
@@ -2477,6 +2589,7 @@ def _job_tiny_eval(rank, n, tmp):
     for n (4: ("sample", 2) × ("data", 2); 2: ("sample", 2)), and the
     full_cov guard on it."""
     import torch
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
     from dvg_tpu_torch.parallel import make_mesh, shard_diverse_metrics
     from dvg_tpu_torch.parallel.dryrun import mesh_axes
@@ -2485,12 +2598,13 @@ def _job_tiny_eval(rank, n, tmp):
     axes = mesh_axes(n)
     local = _tiny_eval_fns(spec, DIST_TINY_EVAL["nsample"] // axes[0][1])
     mesh = make_mesh(axes)
-    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_cyclic.launches = conv_epilogue.launches = 0
     got = shard_diverse_metrics(local, mesh)(spec["x_eval"],
                                              seed=DIST_TINY_SEED, device=CARD)
     torch.cuda.synchronize()
     res = dict(metrics={k: v.cpu() for k, v in got.items()},
                launches=ssim_psnr_batch_cyclic.launches,
+               k3=conv_epilogue.launches,
                coordinate=list(mesh.get_coordinate()), guard="no error")
     try:
         shard_diverse_metrics(local, mesh, full_cov=True)
@@ -2543,9 +2657,9 @@ def dist_spawn(tmp: Path, job: str, n: int) -> list:
 
 def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
     """Phase 14 (module docstring). `x_main` and `out_main` are the main
-    path's clip and bf16 metrics (phase 7), on the CPU. → K1's launches
-    per rank on the sharded protocol and K2's re-scoring the sharded eval
-    CLI's GIFs."""
+    path's clip and bf16 metrics (phase 7), on the CPU. → K1's and K3's
+    launches per rank on the sharded protocol and K2's re-scoring the
+    sharded eval CLI's GIFs."""
     import torch
     from dvg_tpu_torch.checkpoint import load_model
     from dvg_tpu_torch.config import DVGConfig
@@ -2569,13 +2683,15 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
           f"moments {DIST_F64_TOL}): "
           f"{a['step_errors']}; the ('sample', 1)-sharded tiny f32 eval vs "
           f"the plain call max|d| {a['eval_errs'][3]:.3e}, K1 launches "
-          f"{a['launches']}")
+          f"{a['launches']}, K3 {a['k3']}")
     n_free_tiny = cfg_e.n_eval - cfg_e.n_past
+    k3_tiny = k3_per_call(cfg_e)
     check(a["backend"] == "nccl", f"(a) ran on {a['backend']}")
     check(max(a["step_errors"].values()) <= 0,
           f"(a) NCCL step vs no group: {a['step_errors']}")
     check(a["eval_errs"][3] <= 1e-12, f"(a) eval: {a['eval_errs']}")
     check(a["launches"] == n_free_tiny, f"(a) K1 launches {a['launches']}")
+    check(a["k3"] == k3_tiny, f"(a) K3 launches {a['k3']}, want {k3_tiny}")
 
     # the one-process references on the card: the full-width f32 protocol
     # (bf16: the main path's own run), the tiny eval
@@ -2602,6 +2718,7 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
                        _metrics_list(out_main)) for r in b2)
     ms = [r["bfloat16"][1] for r in b2]
     launches = [r[dt][2] for dt in ("float32", "bfloat16") for r in b2]
+    k3 = [r[dt][4] for dt in ("float32", "bfloat16") for r in b2]
     print(f"[dist] (b) gloo, 2 ranks on one card ({b_s:.1f} s with start-up "
           f"and (d)); tiny f64 step 2 x B 4 vs one process on B 8, excess "
           f"over {DIST_F64_TOL}: {b2[0]['step_errors']}")
@@ -2609,7 +2726,7 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
           f"n_past {saved.n_past}, n_eval {saved.n_eval}, {CARD_LINE}: f32 "
           f"vs one process (S {s_n}) max|dssim| {e32[0]:.3e} max|dpsnr| "
           f"{e32[1]:.3e} dB mse rel {e32[2]:.3e} (tol {DIST_F32_TOL}); K1 "
-          f"launches per rank f32, bf16 {launches}")
+          f"launches per rank f32, bf16 {launches}, K3 {k3}")
     print(f"[dist] (b) bf16 ms per rank {[round(m, 1) for m in ms]} (events "
           f"around the sharded call, all-gather included), "
           f"{s_n * n_free * b / (max(ms) / 1e3):,.0f} frames/s of the pair; "
@@ -2623,6 +2740,8 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
           f"{e32}")
     check(within(e16, DIST_BF16_TOL), f"(b) bf16 drift {e16}")
     check(launches == [n_free] * 4, f"(b) K1 launches per rank {launches}")
+    check(k3 == [k3_per_call(saved)] * 4, f"(b) K3 launches per rank {k3}, "
+          f"want {k3_per_call(saved)}")
     for r in b2:
         for k, v in r["bfloat16"][0].items():
             check(tuple(v.shape) == (s_n, n_free, b) and
@@ -2672,32 +2791,37 @@ def phase_dist(tmp: str, ckpt: str, x_main, out_main) -> dict:
           f" ('sample', 2) x ('data', 2) tiny f32 eval, coordinates "
           f"{[r['coordinate'] for r in c4]}, vs one process max|dssim| "
           f"{ec[0]:.3e} max|dpsnr| {ec[1]:.3e} dB mse rel {ec[2]:.3e}; K1 "
-          f"launches per rank {[r['launches'] for r in c4]}; full_cov "
+          f"launches per rank {[r['launches'] for r in c4]}, K3 "
+          f"{[r['k3'] for r in c4]}; full_cov "
           f"guard: {c4[0]['guard'][:60]}...")
     check(within(ec, DIST_F32_TOL), f"(c) 2-D eval vs one process: {ec}")
     check([r["coordinate"] for r in c4] == [[0, 0], [0, 1], [1, 0], [1, 1]],
           "(c) mesh coordinates")
     check(all(r["launches"] == n_free_tiny for r in c4),
           "(c) K1 launches per rank")
+    check(all(r["k3"] == k3_tiny for r in c4),
+          f"(c) K3 launches per rank, want {k3_tiny}")
     check(all("full_cov" in r["guard"] for r in c4), "(c) full_cov guard")
-    return dict(k1=[r["bfloat16"][2] for r in b2], k2=k2)
+    return dict(k1=[r["bfloat16"][2] for r in b2], k2=k2,
+                k3=[r["bfloat16"][4] for r in b2])
 
 def _serve_job(rank, n, tmp):
     """Phase 15's sharded check: this rank's block of the ("sample", 2)
     artifact, gathered on every rank."""
     import torch
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import ssim_psnr_batch_cyclic
     from dvg_tpu_torch.serve import load_serving
     _f32_exact()
     torch.backends.cudnn.benchmark = False
     served = load_serving(str(tmp / "sharded.pt2"))
     x = torch.load(tmp / "x_cut.pt")
-    ssim_psnr_batch_cyclic.launches = 0
+    ssim_psnr_batch_cyclic.launches = conv_epilogue.launches = 0
     out = served(x, MAIN_SEED)
     torch.cuda.synchronize()
     return dict(metrics={k: v.cpu() for k, v in out.items()},
                 launches=ssim_psnr_batch_cyclic.launches,
-                modules=_model_modules())
+                k3=conv_epilogue.launches, modules=_model_modules())
 
 
 DIST_JOBS["serve2"] = _serve_job
@@ -2730,15 +2854,17 @@ def _entry_call(fn, entry: str, x):
 
 
 def _serve_calls(call) -> dict:
-    """A warm-up call, SERVE_REPS calls timed by CUDA events with K1's and
-    K2's counts set to 0 just before and read just after, then one call
-    profiled → the output, ms per call, K1's launches per call, K2's in
-    all, K1's µs per launch and the card's busy share."""
+    """A warm-up call, SERVE_REPS calls timed by CUDA events with K1's,
+    K2's and K3's counts set to 0 just before and read just after, then one
+    call profiled → the output, ms per call, K1's and K3's launches per
+    call, K2's in all, K1's µs per launch and the card's busy share."""
     import torch
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue
     from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                              ssim_psnr_batch_images)
     call()
     ssim_psnr_batch_cyclic.launches = ssim_psnr_batch_images.launches = 0
+    conv_epilogue.launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     start.record()
@@ -2747,12 +2873,13 @@ def _serve_calls(call) -> dict:
     end.record()
     torch.cuda.synchronize()
     k1, k2 = ssim_psnr_batch_cyclic.launches, ssim_psnr_batch_images.launches
+    k3 = conv_epilogue.launches
     kernels, busy, span = device_kernels(call)
     us = [e.time_range.elapsed_us() for e in kernels
           if "ssim_kernel" in e.name]
     return dict(out=_cpu(out), ms=start.elapsed_time(end) / SERVE_REPS,
                 k1=k1 / SERVE_REPS, k2=k2, k1_us=sum(us) / max(len(us), 1),
-                busy=busy / span)
+                busy=busy / span, k3=k3 / SERVE_REPS)
 
 
 def _await(path: Path) -> None:
@@ -2840,7 +2967,8 @@ def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
     """Phase 15 (module docstring). `x_main` is the main path's clip
     (phase 7), on the CPU. → K1's launches inside the diverse_metrics
     artifact's call and its µs per launch there; K2's launches per call of
-    the three artifacts."""
+    the three artifacts; K3's launches inside the diverse_metrics
+    artifact's call."""
     import torch
     from dvg_tpu_torch.checkpoint import save_checkpoint
     from dvg_tpu_torch.config import DVGConfig
@@ -2933,6 +3061,9 @@ def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
           f"{trig_frames:.3e} (band {SERVE_BF16_FRAME_ATOL:.3e}), "
           f"{fired} of {trig_ref[1]['triggers'].numel()} decisions fire "
           f"live, all equal {same}")
+    k3 = {e: (got[e]["k3"], ref[e]["k3"]) for e in SERVE_ENTRIES}
+    print(f"[serve] K3 launches per call, artifact / live: "
+          + ", ".join(f"{e} {a:g} / {l:g}" for e, (a, l) in k3.items()))
     for e in SERVE_ENTRIES:
         a_ms, l_ms = got[e]["ms"], ref[e]["ms"]
         print(f"[serve] {e}: artifact {a_ms:.1f} ms per call, live "
@@ -2945,6 +3076,10 @@ def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
     check(got["posterior"]["k1"] == got["gp_trigger"]["k1"] == 0,
           "the posterior or gp_trigger artifact launched K1")
     check(k2 == 0, f"the artifacts launched K2 {k2} times")
+    check(dm["k3"] == k3_per_call(cfg), f"the artifact launched K3 "
+          f"{dm['k3']} times per call, not {k3_per_call(cfg)}")
+    check(all(a == l > 0 for a, l in k3.values()),
+          f"K3 launches per call, artifact / live: {k3}")
     check(within(e16, SERVE_BF16_TOL), f"bf16 artifact vs live: {e16}")
     check(post <= SERVE_BF16_FRAME_ATOL, f"posterior artifact vs live {post}")
     check(trig_frames <= SERVE_BF16_FRAME_ATOL,
@@ -2962,13 +3097,18 @@ def phase_serve(tmp: str, ckpt: str, x_main) -> dict:
           f"ranks sharing the card vs the live entry in one process "
           f"max|dssim| {e_shard[0]:.3e} max|dpsnr| {e_shard[1]:.3e} dB mse "
           f"rel {e_shard[2]:.3e} (tol {SERVE_F32_TOL}); K1 launches per rank "
-          f"{[r['launches'] for r in ranks]}, modules imported "
+          f"{[r['launches'] for r in ranks]}, K3 {[r['k3'] for r in ranks]}, "
+          f"modules imported "
           f"{[r['modules'] or 'none' for r in ranks]}")
     check(within(e_shard, SERVE_F32_TOL), f"sharded vs live {e_shard}")
     check(all(r["launches"] == cut_free for r in ranks),
           "sharded K1 launches per rank")
+    cut_k3 = k3_per_call(cfg.replace(n_eval=SERVE_CUT))
+    check(all(r["k3"] == cut_k3 for r in ranks),
+          f"sharded K3 launches per rank, want {cut_k3}")
     check(not any(r["modules"] for r in ranks), "a rank imported model code")
-    return dict(k1=int(dm["k1"]), k1_us=dm["k1_us"], k2=k2 // SERVE_REPS)
+    return dict(k1=int(dm["k1"]), k1_us=dm["k1_us"], k2=k2 // SERVE_REPS,
+                k3=int(dm["k3"]))
 
 
 # ---------------------------------------------------------------------------
@@ -3193,11 +3333,13 @@ def main() -> int:
         resources = timed("environment and build", phase_environment)
         k1 = timed("k1", phase_k1)
         k2 = timed("k2", phase_k2, resources)
+        k3 = timed("k3", phase_k3, resources)
         with tempfile.TemporaryDirectory(prefix="dvg_smoke_") as tmp:
             ckpt = timed("ckpt", phase_checkpoint, tmp)
             timed("tiny", phase_tiny)
             timed("gen-tiny", phase_gen_tiny)
-            cfg, fns, x, out, k1["launches"] = timed("main", phase_main, ckpt)
+            cfg, fns, x, out, k1["launches"], k3["launches"] = timed(
+                "main", phase_main, ckpt)
             k2["launches"] = timed("gen-full", phase_gen_full, cfg, fns, x,
                                    out)
             timed("profile", phase_profile, fns, x)
@@ -3215,13 +3357,15 @@ def main() -> int:
             timed("import", phase_import, tmp)
             dist = timed("dist", phase_dist, tmp, ckpt, x_main, out_main)
             k1["dist_launches"], k2["dist_launches"] = dist["k1"], dist["k2"]
+            k3["dist_launches"] = dist["k3"]
             serve = timed("serve", phase_serve, tmp, ckpt, x_main)
-            k1["serve_launches"], k2["serve_launches"] = serve["k1"], \
-                serve["k2"]
+            k1["serve_launches"], k2["serve_launches"], \
+                k3["serve_launches"] = serve["k1"], serve["k2"], serve["k3"]
             timed("soak quick", phase_soak_quick, tmp)
         print(f"[backbones] {CARD_LINE}: " + "; ".join(
             f"{name} protocol {r['fps']:,.0f} frames/s ({r['ms']:.1f} ms, "
-            f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each)"
+            f"K1 {r['launches']} launches, {r['k1_us']:.1f} us each, K3 "
+            f"{r['k3']} launches)"
             for name, r in full.items())
             + f"; VGG-128 bf16 train step {train_ms:.2f} ms")
         spilled = spills(resources)
@@ -3242,6 +3386,15 @@ def main() -> int:
                for name, replaces, k in (
                    ("ssim_cyclic", "dvg_tpu/ops/pallas_ssim.py:187", k1),
                    ("ssim_images", "dvg_tpu/ops/pallas_ssim.py:153", k2))]
+    # K3 replaces no Pallas kernel: XLA fused the epilogue into the conv.
+    # Its launches: per call of the main path, per rank of the sharded
+    # protocol, per call of the diverse_metrics artifact, per call of each
+    # backbone's full-width protocol
+    kernels.append(dict(name="conv_epilogue", route="cuda",
+                        source="dvg_tpu_torch/csrc/conv_epilogue.cu",
+                        replaces=None, library_ms=None, backbone_launches={
+                            name: r["k3"] for name, r in full.items()},
+                        **k3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

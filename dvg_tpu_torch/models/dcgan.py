@@ -57,6 +57,8 @@ def decoder_stage_channels(image_width: int) -> List[Tuple[int, int]]:
 
 def final_activation(image_width: int) -> Callable[[torch.Tensor],
                                                     torch.Tensor]:
+    """The final transposed conv's activation; its `__name__` is its key in
+    `ops.epilogue.ACTS`, which the eval paths' epilogue takes."""
     return torch.tanh if image_width == 64 else torch.sigmoid
 
 
@@ -74,9 +76,9 @@ class Encoder(nn.Module):
         h = L.nchw(x)
         skips = []
         for stage in self.stages:
-            h = L.leaky_relu(stage(h))
+            h = stage(h, "leaky_relu")
             skips.append(L.nhwc(h))
-        h = torch.tanh(self.head(h))
+        h = self.head(h, "tanh")
         return h.reshape(h.shape[0], -1), skips
 
     def train_forward(self, x: torch.Tensor, calls: int,
@@ -123,11 +125,12 @@ class Decoder(nn.Module):
     def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
                 ) -> torch.Tensor:
         """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc)."""
-        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        d = self.head(vec[:, :, None, None], "leaky_relu")
         for stage, skip in zip(self.stages, reversed(skips)):
-            d = L.leaky_relu(stage(torch.cat([d, L.nchw(skip)], dim=1)))
-        out = self.final(torch.cat([d, L.nchw(skips[0])], dim=1))
-        return L.nhwc(self.final_act(out))
+            d = stage(torch.cat([d, L.nchw(skip)], dim=1), "leaky_relu")
+        return L.nhwc(L.conv_act(
+            self.final, torch.cat([d, L.nchw(skips[0])], dim=1),
+            self.final_act.__name__))
 
     def bn_blocks(self) -> List[L.ConvBlock]:
         """The BN blocks in the order of `grouped`'s statistics."""
@@ -216,12 +219,9 @@ class Decoder(nn.Module):
                 f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
                 f"latent batch {vec.shape[0]}; tile the pre to the latent "
                 "batch once, outside the loop")
-        d = L.leaky_relu(self.head(vec[:, :, None, None]))
-        weights = self._weights()
-        for (w, b), pre in zip(weights[:-1], skip_pre[:-1]):
+        d = self.head(vec[:, :, None, None], "leaky_relu")
+        acts = ["leaky_relu"] * len(self.stages) + [self.final_act.__name__]
+        for (w, b), pre, act in zip(self._weights(), skip_pre, acts):
             y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
-            d = L.leaky_relu(y + L.nchw(pre) + b[:, None, None])
-        w, b = weights[-1]
-        y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
-        return L.nhwc(self.final_act(y + L.nchw(skip_pre[-1])
-                                     + b[:, None, None]))
+            d = L.skip_epilogue(y, b, pre, act)
+        return L.nhwc(d)

@@ -1,7 +1,9 @@
 """Layer pieces of the port: conv blocks with eval-mode and train-mode
 BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, the VGG
 backbone's 2×2 max-pool and nearest ×2 upsample, BN folding and the init
-law.
+law. A BN-folded eval conv runs without its bias and ends in one epilogue
+pass (`conv_act`, `skip_epilogue`: `ops/epilogue.py`, K3 on the card) that
+adds the bias and a split conv's skip half and applies the activation.
 
 Counterpart of `dvg_tpu/models/layers.py`. Weights are kept in torch's own
 layouts (Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw)); the JAX
@@ -24,12 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, activate,
+                                         conv_epilogue)
 from dvg_tpu_torch.parallel.collectives import all_reduce_sum, world_size
 
 WEIGHT_STD = 0.02
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
-NEGATIVE_SLOPE = 0.2
 
 # per-call batch statistics of one train-mode BN: (mean, unbiased variance),
 # each (calls, C) in at least f32
@@ -78,14 +81,37 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv_apply(conv: nn.Module, x: torch.Tensor,
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               dtype: Optional[torch.dtype] = None,
+               bias: bool = True) -> torch.Tensor:
     """`conv` (Conv2d or ConvTranspose2d) on x with its weight and bias cast
     to `dtype` by a differentiable cast, so the gradient reaches the f32
-    master weights."""
-    w, b = cast(conv.weight, dtype), cast(conv.bias, dtype)
+    master weights; without its bias where `bias` is False."""
+    w = cast(conv.weight, dtype)
+    b = cast(conv.bias, dtype) if bias else None
     if isinstance(conv, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, conv.stride, conv.padding)
     return F.conv2d(x, w, b, conv.stride, conv.padding)
+
+
+def conv_act(conv: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Eval-mode `conv` on x, then its bias and the activation `act` in one
+    epilogue pass over the conv's output (`ops.epilogue`: K3 on the
+    card)."""
+    return conv_epilogue(conv_apply(conv, x, bias=False), conv.bias, None,
+                         act)
+
+
+def skip_epilogue(y: torch.Tensor, bias: torch.Tensor, pre: torch.Tensor,
+                  act: str) -> torch.Tensor:
+    """The epilogue of a split conv: its input half y (NCHW-shaped) plus its
+    precomputed skip half `pre` (NHWC), the bias and `act`, in one pass.
+    Both go to the epilogue in channels_last memory: a no-op for the model
+    as `prepare()` leaves it (channels_last weights, so every conv output
+    is), a copy for one whose weights are not (its 1×1 → 4×4 head gives
+    NCHW)."""
+    cl = torch.channels_last
+    return conv_epilogue(y.contiguous(memory_format=cl), bias,
+                         nchw(pre).contiguous(memory_format=cl), act)
 
 
 def batch_norm_train(y: torch.Tensor, weight: torch.Tensor,
@@ -132,13 +158,16 @@ class ConvBlock(nn.Module):
         self.conv = conv
         self.bn = bn
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+    def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        """Eval mode, then the activation `act` (a key of
+        `ops.epilogue.ACTS`). A folded block ends in one epilogue pass
+        (`conv_act`); a block that holds its BN runs conv, BN and `act` as
+        three ops."""
         if self.bn is None:
-            return y
-        return F.batch_norm(y, self.bn.running_mean, self.bn.running_var,
-                            self.bn.weight, self.bn.bias, training=False,
-                            eps=BN_EPS)
+            return conv_act(self.conv, x, act)
+        return activate(F.batch_norm(
+            self.conv(x), self.bn.running_mean, self.bn.running_var,
+            self.bn.weight, self.bn.bias, training=False, eps=BN_EPS), act)
 
     def train_forward(self, x: torch.Tensor, calls: int,
                       dtype: Optional[torch.dtype] = None, group=None

@@ -66,7 +66,7 @@ def _fold_groups(groups: nn.ModuleList) -> nn.ModuleList:
 
 def _blocks_eval(blocks, h: torch.Tensor) -> torch.Tensor:
     for block in blocks:
-        h = L.leaky_relu(block(h))
+        h = block(h, "leaky_relu")
     return h
 
 
@@ -94,7 +94,7 @@ class Encoder(nn.Module):
         for i, group in enumerate(self.groups):
             h = _blocks_eval(group, L.max_pool2d(h) if i else h)
             skips.append(L.nhwc(h))
-        h = torch.tanh(self.head(L.max_pool2d(h)))
+        h = self.head(L.max_pool2d(h), "tanh")
         return h.reshape(h.shape[0], -1), skips
 
     def train_forward(self, x: torch.Tensor, calls: int,
@@ -137,11 +137,11 @@ class Decoder(nn.Module):
     def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
                 ) -> torch.Tensor:
         """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc)."""
-        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        d = self.head(vec[:, :, None, None], "leaky_relu")
         for group, skip in zip(self.groups, reversed(skips)):
             d = _blocks_eval(group, torch.cat(
                 [L.upsample_nearest2d(d), L.nchw(skip)], dim=1))
-        return L.nhwc(torch.sigmoid(self.final(d)))
+        return L.nhwc(L.conv_act(self.final, d, "sigmoid"))
 
     def bn_blocks(self) -> List[L.ConvBlock]:
         """The head, then every group's blocks in order."""
@@ -220,14 +220,14 @@ class Decoder(nn.Module):
                 f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
                 f"latent batch {vec.shape[0]}; tile the pre to the latent "
                 "batch once, outside the loop")
-        d = L.leaky_relu(self.head(vec[:, :, None, None]))
+        d = self.head(vec[:, :, None, None], "leaky_relu")
         for group, pre in zip(self.groups, skip_pre):
             up = L.upsample_nearest2d(d)
             conv = group[0].conv
             y = F.conv2d(up, conv.weight[:, :up.shape[1]], None, 1, 1)
-            d = _blocks_eval(group[1:], L.leaky_relu(
-                y + L.nchw(pre) + conv.bias[:, None, None]))
-        return L.nhwc(torch.sigmoid(self.final(d)))
+            d = _blocks_eval(group[1:], L.skip_epilogue(
+                y, conv.bias, pre, "leaky_relu"))
+        return L.nhwc(L.conv_act(self.final, d, "sigmoid"))
 
 
 class GaussianEncoder(nn.Module):

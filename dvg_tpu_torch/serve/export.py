@@ -10,7 +10,8 @@ at fixed shapes with `torch.export.export` and writes the program, weights
 embedded, with `torch.export.save` (a `.pt2`), beside a `.json` sidecar of
 its geometry. `load_serving` restores a callable from the file alone; it
 imports the op registration of the metric kernels (`ops/ssim_cuda.py`) and
-nothing of `models/` or `generate/`.
+of the conv epilogue (`ops/epilogue.py`), and nothing of `models/` or
+`generate/`.
 
 Exported entry points (shapes fixed at export time; `seed` is a 0-dim
 int64 tensor input, so one artifact serves every seed):
@@ -194,7 +195,8 @@ def load_serving(path: str) -> Callable:
     A sharded artifact (`mesh_samples`) needs an initialized process group
     of mesh_samples·mesh_data ranks; every rank calls `served(x, seed)` with
     the whole batch and gets the whole (S, T', B) metrics back."""
-    from dvg_tpu_torch.ops import ssim_cuda  # noqa: F401  (registers K1, K2)
+    # registers K1, K2 and K3
+    from dvg_tpu_torch.ops import epilogue, ssim_cuda  # noqa: F401
 
     with open(path + ".json") as f:
         side = json.load(f)

@@ -207,6 +207,93 @@ def test_images_kernel_refuses_what_it_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K3: the conv epilogue
+# ---------------------------------------------------------------------------
+
+# (shape, dtype, layout): the VGG-128 cell's largest map (a full-resolution
+# 64-channel conv output of 800 frames) and its 3-channel final conv
+# (scalar path); in f32 a 64-channel map (vector path, 4 a vector) and the
+# 90-channel encoder head (scalar); the 1×1 → 4×4 decoder head as
+# contiguous NCHW; a channel count that is a multiple of 4 but not of 8
+EPILOGUE_CASES = [((800, 64, 128, 128), torch.bfloat16, "channels_last"),
+                  ((800, 3, 128, 128), torch.bfloat16, "channels_last"),
+                  ((64, 64, 64, 64), torch.float32, "channels_last"),
+                  ((800, 90, 1, 1), torch.float32, "channels_last"),
+                  ((800, 512, 4, 4), torch.bfloat16, "nchw"),
+                  ((16, 12, 32, 32), torch.bfloat16, "channels_last")]
+
+
+def _epilogue_inputs(dev, shape, dtype, layout, seed=0):
+    fmt = (torch.channels_last if layout == "channels_last"
+           else torch.contiguous_format)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    return (rand(*shape).contiguous(memory_format=fmt), rand(shape[1]),
+            rand(*shape).contiguous(memory_format=fmt))
+
+
+def _epilogue_close(got, ref, act):
+    """none and leaky_relu bitwise; tanh and sigmoid within 1 bf16 ulp
+    (2⁻⁷ of the value bounds it) or 1e-6 in f32."""
+    assert got.dtype == ref.dtype and got.stride() == ref.stride()
+    if act in ("none", "leaky_relu"):
+        assert torch.equal(got, ref), act
+        return
+    d = (got.float() - ref.float()).abs()
+    tol = (2.0 ** -7 * ref.float().abs() if got.dtype == torch.bfloat16
+           else torch.full_like(d, 1e-6))
+    assert (d <= tol).all(), (act, d.max().item())
+
+
+@pytest.mark.parametrize("shape,dtype,layout", EPILOGUE_CASES)
+@pytest.mark.parametrize("with_pre", [False, True])
+def test_epilogue_kernel_matches_plain(cuda, shape, dtype, layout, with_pre):
+    from dvg_tpu_torch.ops import epilogue as E
+    y, bias, pre = _epilogue_inputs(cuda, shape, dtype, layout)
+    pre = pre if with_pre else None
+    for act in E.ACTS:
+        before = E.conv_epilogue.launches
+        got = E.conv_epilogue(y, bias, pre, act)
+        torch.cuda.synchronize()
+        assert E.conv_epilogue.launches == before + 1
+        _epilogue_close(got, E.conv_epilogue_plain(y, bias, pre, act), act)
+        del got
+    torch.cuda.empty_cache()
+
+
+def test_epilogue_misaligned_and_cpu_paths(cuda):
+    """Storage off a 16-byte boundary takes the scalar path; a CPU call runs
+    the plain version and launches nothing."""
+    from dvg_tpu_torch.ops import epilogue as E
+    y, bias, pre = _epilogue_inputs(cuda, (4, 16, 8, 8), torch.bfloat16,
+                                    "nchw")
+    y, pre = _misaligned(y), _misaligned(pre)
+    got = E.conv_epilogue(y, bias, pre, "leaky_relu")
+    _epilogue_close(got, E.conv_epilogue_plain(y, bias, pre, "leaky_relu"),
+                    "leaky_relu")
+    before = E.conv_epilogue.launches
+    cpu = E.conv_epilogue(y.cpu(), bias.cpu(), pre.cpu(), "leaky_relu")
+    assert E.conv_epilogue.launches == before
+    assert torch.equal(cpu, got.cpu())
+
+
+def test_epilogue_refuses_what_it_does_not_take(cuda):
+    from dvg_tpu_torch.ops import epilogue as E
+    y, bias, pre = _epilogue_inputs(cuda, (2, 16, 8, 8), torch.float32,
+                                    "channels_last")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        E.conv_epilogue(y.double(), bias.double(), None, "none")
+    with pytest.raises(TypeError, match="bias must be"):
+        E.conv_epilogue(y, bias.bfloat16(), None, "none")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        E.conv_epilogue(y, bias.cpu(), None, "none")
+    with pytest.raises(ValueError, match="pre's strides"):
+        E.conv_epilogue(y, bias, pre.contiguous(), "none")
+
+
+# ---------------------------------------------------------------------------
 # generation and checkpoints, card against CPU
 # ---------------------------------------------------------------------------
 
