@@ -22,7 +22,14 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      and without the skip half (leaky and none bitwise equal, tanh and
      sigmoid within 1 bf16 ulp; the largest |got - plain| is the entry's
      max_abs_err); times the kernel, its wrapper, the plain version and
-     the stock chain it replaced, with the HBM bound;
+     the stock chain it replaced, with the HBM bound; then K3's pooled
+     form at (800, 64, 128, 128) -> (800, 64, 64, 64) bf16 against its
+     plain version and max_pool2d of the plain epilogue, timed beside its
+     byte bound and the K3 + max_pool2d pair it replaces;
+  3c. [resample] the five folded up halves of VGG-128's decoder (stride-2
+     transposed convs of the small maps, 800 frames, bf16 channels_last,
+     cuDNN autotuned) against the nearest upsample + 3×3 conv each
+     replaces: µs of each, the output's layout, the largest difference;
   4. checkpoint: writes the headline DCGAN-64 model from seeded weights in
      the dvg_tpu format and reads it back, every leaf equal; the later
      phases load their model from this file;
@@ -272,6 +279,10 @@ FRAME_ATOL = 1e-4
 # K3's launches per encode or decode pass of each backbone (its folded convs)
 K3_PER_PASS = {("dcgan", 64): 5, ("dcgan", 128): 6, ("vgg", 64): 11,
                ("vgg", 128): 14}
+# of them, the pooled form's per encode without skips (VGG's groups)
+POOL_PER_ENCODE = {("vgg", 64): 4, ("vgg", 128): 5}
+# VGG-128's eval at 800 frames: the pooled map K3's pooled form is timed on
+POOL_SHAPE = (800, 64, 128, 128)
 
 # [import]: reference-schema .pth files of each backbone at a tiny width
 # and of DCGAN-64 at the bench's (BAIR: C 3, n_past 2), the BAIR data
@@ -479,12 +490,18 @@ def spills(resources) -> list:
 def kernel_label(mangled: str) -> str:
     """'ssim_kernel bf16 C3 G2' etc. for a mangled ssim_kernel<T, C, G>
     instance (K1 runs the G2 instances, K2 the G1 instances); 'epilogue
-    bf16 act 1 pre 1 vec 1' etc. for K3's instances."""
+    bf16 act 1 pre 1 vec 1' etc. for K3's instances, 'epilogue pool bf16
+    act 1 vec 1' for its pooled form's."""
     m = re.search(r"dvg_elementwise_epilogueI(13__nv_bfloat16|f)Li(\d)ELb"
                   r"([01])ELb([01])E", mangled)
     if m is not None:
         return (f"epilogue {'f32' if m.group(1) == 'f' else 'bf16'} act "
                 f"{m.group(2)} pre {m.group(3)} vec {m.group(4)}")
+    m = re.search(r"dvg_elementwise_epilogue_poolI(13__nv_bfloat16|f)Li(\d)"
+                  r"ELb([01])E", mangled)
+    if m is not None:
+        return (f"epilogue pool {'f32' if m.group(1) == 'f' else 'bf16'} "
+                f"act {m.group(2)} vec {m.group(3)}")
     m = re.search(r"ssim_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m is None:
         return mangled
@@ -675,10 +692,111 @@ def phase_k3(resources):
                 torch.bfloat16).contiguous(memory_format=torch.channels_last)
         del y, pre
         torch.cuda.empty_cache()
+    pool = phase_k3_pool(g)
     for entry, lines in resources.items():
         if "epilogue" in entry:
             print(f"[k3] ptxas {entry}: {'; '.join(lines)}")
-    return dict(result, max_abs_err=worst)
+    return dict(result, max_abs_err=worst, pool=pool)
+
+
+def phase_k3_pool(g) -> dict:
+    """K3's pooled form at POOL_SHAPE bf16 channels_last against its plain
+    version (bitwise for none and leaky_relu, tanh and sigmoid within 1
+    bf16 ulp) and against max_pool2d of the plain epilogue; times the
+    kernel beside its byte bound (y read once, the pooled map written
+    once), its wrapper, the plain version and the K3 + max_pool2d pair it
+    replaces."""
+    import torch
+    import torch.nn.functional as F
+    from dvg_tpu_torch.ops import epilogue as E
+    tag = "[k3 pool]"
+    dev = torch.device(CARD)
+    y = torch.randn(POOL_SHAPE, generator=g, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(POOL_SHAPE[1], generator=g, device=dev).to(
+        torch.bfloat16)
+    for act in E.ACTS:
+        got = E.conv_epilogue_pool(y, bias, act)
+        ref = E.conv_epilogue_pool_plain(y, bias, act)
+        stock = F.max_pool2d(E.conv_epilogue_plain(y, bias, None, act), 2, 2)
+        d = (got.float() - ref.float()).abs()
+        ulp = (d / (2.0 ** -7 * ref.float().abs()).clamp(
+            min=1e-38)).max().item()
+        exact = torch.equal(got, ref)
+        print(f"{tag} {POOL_SHAPE} -> {tuple(got.shape)} bf16 {act}: "
+              f"bitwise {exact} (max_pool2d of plain: "
+              f"{torch.equal(got, stock)}), max|d| {d.max().item():.3e}, "
+              f"worst {ulp:.2f} of 2^-7 relative; channels_last "
+              f"{got.is_contiguous(memory_format=torch.channels_last)}")
+        check(got.is_contiguous(memory_format=torch.channels_last),
+              "the pooled form's output is not channels_last")
+        if act in ("none", "leaky_relu"):
+            check(exact and torch.equal(got, stock),
+                  f"K3's pooled form {act} is not bitwise its plain version")
+        else:
+            check(ulp <= 1, f"K3's pooled form {act} disagrees with plain")
+        del got, ref, stock, d
+    act = "leaky_relu"
+    k_ms = cuda_ms(lambda: E.launch_pool(y, bias, act), 20)
+    w_ms = cuda_ms(lambda: E.conv_epilogue_pool(y, bias, act), 20)
+    p_ms = cuda_ms(lambda: E.conv_epilogue_pool_plain(y, bias, act), 3)
+    pair_ms = cuda_ms(lambda: F.max_pool2d(E.launch(y, bias, None, act, 1),
+                                           2, 2), 20)
+    nbytes = y.numel() * y.element_size() * 5 // 4
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{tag} {act}: kernel {k_ms * 1e3:.1f} us/launch  wrapper "
+          f"{w_ms * 1e3:.1f} us  plain {p_ms * 1e3:.1f} us  K3 + max_pool2d "
+          f"{pair_ms * 1e3:.1f} us  bound {b_ms * 1e3:.1f} us by bytes "
+          f"({nbytes / 1e9:.2f} GB)  = {b_ms / k_ms:.1%} of bound")
+    del y
+    torch.cuda.empty_cache()
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, pair_ms=pair_ms)
+
+
+def phase_resample() -> dict:
+    """The five folded up halves of VGG-128's decoder at the eval cell's
+    800 frames, bf16 channels_last: each stride-2 transposed conv of the
+    small map against the nearest ×2 upsample + 3×3 conv it replaces,
+    timed after cuDNN's autotuning, with the output's layout and the
+    largest difference between the two."""
+    import torch
+    import torch.nn.functional as F
+    from dvg_tpu_torch.models import layers as L
+    from dvg_tpu_torch.models import vgg
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(11)
+    cl = torch.channels_last
+    out = {}
+    for i, chain in enumerate(vgg.dec_groups(128)):
+        c_u, c_o, side = chain[0] // 2, chain[1], 4 * 2 ** i
+        w = torch.randn((c_o, c_u, 3, 3), generator=g, device=dev) * (
+            2.0 / (9 * c_u)) ** 0.5
+        wf = vgg.fold_upsample(w).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        w = w.to(torch.bfloat16).contiguous(memory_format=cl)
+        d = torch.rand((POOL_SHAPE[0], c_u, side, side), generator=g,
+                       device=dev).to(torch.bfloat16).contiguous(
+                           memory_format=cl)
+        fold = lambda: F.conv_transpose2d(d, wf, None, 2, 1)   # noqa: E731
+        old = lambda: F.conv2d(L.upsample_nearest2d(d), w, None, 1, 1)  # noqa
+        y = fold()
+        diff = (y.float() - old().float()).abs().max().item()
+        f_ms, o_ms = cuda_ms(fold, 20), cuda_ms(old, 20)
+        layout = y.is_contiguous(memory_format=cl)
+        print(f"[resample] group {i} ({c_u} -> {c_o}, {side} -> {2 * side} "
+              f"px): folded transposed conv {f_ms * 1e3:.1f} us, upsample + "
+              f"conv {o_ms * 1e3:.1f} us ({o_ms / f_ms:.2f}x); channels_last "
+              f"{layout}; max|d| {diff:.3e}")
+        check(layout, f"group {i}'s folded up half is not channels_last")
+        out[i] = dict(fold_ms=f_ms, old_ms=o_ms)
+        del d, y, w, wf
+    torch.cuda.empty_cache()
+    f_all = sum(r["fold_ms"] for r in out.values())
+    o_all = sum(r["old_ms"] for r in out.values())
+    print(f"[resample] five up halves: folded {f_all * 1e3:.1f} us, upsample "
+          f"+ conv {o_all * 1e3:.1f} us a free step ({CARD_LINE})")
+    return out
 
 
 def k3_per_call(cfg) -> int:
@@ -688,6 +806,15 @@ def k3_per_call(cfg) -> int:
     blocks and head, or the decoder's head, blocks and final conv)."""
     per_pass = K3_PER_PASS[cfg.model, cfg.image_width]
     return per_pass * (1 + 2 * (cfg.n_eval - cfg.n_past))
+
+
+def pool_per_call(cfg) -> int:
+    """Of them, the launches of K3's pooled form: every free step's encode
+    ends each VGG group in it unless the skips refresh."""
+    if cfg.last_frame_skip:
+        return 0
+    return (POOL_PER_ENCODE.get((cfg.model, cfg.image_width), 0)
+            * (cfg.n_eval - cfg.n_past))
 
 
 def phase_checkpoint(directory: str) -> str:
@@ -1881,7 +2008,7 @@ def phase_backbones_full(tmp: str) -> dict:
     from dvg_tpu_torch.config import DVGConfig
     from dvg_tpu_torch.generate.rollout import make_rollout_fns
     from dvg_tpu_torch.models.dvg import DVGModel
-    from dvg_tpu_torch.ops.epilogue import conv_epilogue
+    from dvg_tpu_torch.ops.epilogue import conv_epilogue, conv_epilogue_pool
     from dvg_tpu_torch.ops.ssim_cuda import (ssim_psnr_batch_cyclic,
                                              ssim_psnr_batch_images)
     torch.backends.cudnn.benchmark = True
@@ -1910,11 +2037,11 @@ def phase_backbones_full(tmp: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ssim_psnr_batch_cyclic.launches = 0
         ssim_psnr_batch_images.launches = 0
-        conv_epilogue.launches = 0
+        conv_epilogue.launches = conv_epilogue_pool.launches = 0
         out, ms = events_ms(lambda: fns.diverse_metrics(x, seed=MAIN_SEED))
         launches = (ssim_psnr_batch_cyclic.launches,
                     ssim_psnr_batch_images.launches)
-        k3 = conv_epilogue.launches
+        k3, pooled = conv_epilogue.launches, conv_epilogue_pool.launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         frames = s_n * n_free * b
         finite = all(bool(torch.isfinite(v).all()) for v in out.values())
@@ -1926,6 +2053,8 @@ def phase_backbones_full(tmp: str) -> dict:
               f"{launches} times, want ({n_free}, 0)")
         check(k3 == k3_per_call(cfg2), f"{name}: K3 launched {k3} times, "
               f"want {k3_per_call(cfg2)}")
+        check(pooled == pool_per_call(cfg2), f"{name}: K3's pooled form "
+              f"launched {pooled} times, want {pool_per_call(cfg2)}")
         kernels, busy, span = device_kernels(
             lambda: fns.diverse_metrics(x, seed=4))
         k1 = [e.time_range.elapsed_us() for e in kernels
@@ -1941,7 +2070,7 @@ def phase_backbones_full(tmp: str) -> dict:
         print(f"[backbones full] {name} bf16 S {s_n} B {b} n_free {n_free} "
               f"({CARD_LINE}): {ms:.1f} ms/protocol, {frames / (ms / 1e3):,.0f}"
               f" frames/s; K1 launches {launches[0]}, K2 {launches[1]}, "
-              f"K3 {k3}; "
+              f"K3 {k3} (pooled form {pooled}); "
               f"peak mem {peak:.2f} GiB; card busy {busy / span:.1%} of the "
               f"profiled run ({len(kernels)} kernels); K1 on the model's "
               f"{w} px frames {k1_us:.1f} us/launch ({len(k1)} launches "
@@ -3334,6 +3463,7 @@ def main() -> int:
         k1 = timed("k1", phase_k1)
         k2 = timed("k2", phase_k2, resources)
         k3 = timed("k3", phase_k3, resources)
+        timed("resample", phase_resample)
         with tempfile.TemporaryDirectory(prefix="dvg_smoke_") as tmp:
             ckpt = timed("ckpt", phase_checkpoint, tmp)
             timed("tiny", phase_tiny)

@@ -32,6 +32,19 @@
 // The C entry launches on the caller's stream, allocates nothing and
 // returns the launch's error code; the wrapper (ops/epilogue.py) checks
 // shapes, layouts and types, allocates the output and raises on an error.
+//
+// The pooled form (`dvg_elementwise_epilogue_pool`) ends a VGG encoder
+// group whose full map nothing else reads: the same sum, activation and
+// single rounding, then the 2x2 stride-2 max-pool, writing only the pooled
+// map. It replaces the full map's write, and the stock max-pool's read of
+// it, by nothing: y is read once and a quarter of its bytes are written.
+// The max is taken over the rounded values, in the window's row-major order
+// with a NaN kept, as torch's max-pool takes it, so the result is bitwise
+// max_pool2d(epilogue(y)). It takes channels_last memory only (the eval
+// path's layout): one block walks whole output rows, each thread a 16-byte
+// vector (or an element) of one output pixel, whose four taps are four
+// independent loads, so the row and column indices cost one integer
+// division a row and one a unit instead of 64-bit divisions per element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +90,7 @@ struct Elem<float> {
   __device__ static float stream(const float* p) { return __ldcs(p); }
   __device__ static float cached(const float* p) { return __ldg(p); }
   __device__ static void store(float* p, float f) { __stcs(p, f); }
+  __device__ static float round(float f) { return f; }
 };
 
 template <>
@@ -108,6 +122,10 @@ struct Elem<__nv_bfloat16> {
   __device__ static void store(__nv_bfloat16* p, float f) {
     __stcs(reinterpret_cast<unsigned short*>(p),
            static_cast<unsigned short>(bf16_bits(f)));
+  }
+  // f rounded to bf16 and widened again (exact)
+  __device__ static float round(float f) {
+    return __uint_as_float(bf16_bits(f) << 16);
   }
 };
 
@@ -175,6 +193,70 @@ dvg_elementwise_epilogue(const T* __restrict__ y, const T* __restrict__ pre,
   }
 }
 
+// torch's max-pool step: the later tap wins only if it is greater or NaN,
+// so a NaN is kept and of equal values (-0 and +0) the first stays.
+__device__ __forceinline__ float pool_max(float m, float v) {
+  return (v > m || v != v) ? v : m;
+}
+
+// The pooled form over channels_last y (n, h, w, c) into out (n, h/2, w/2,
+// c). cu: units a pixel (c / kVec vectors, or c elements); rows: n·(h/2)
+// output rows, walked block by block. Each unit: its four taps in the
+// window's row-major order, each summed with the bias, activated and
+// rounded to T, and their running max.
+template <typename T, int ACT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+dvg_elementwise_epilogue_pool(const T* __restrict__ y,
+                              const T* __restrict__ bias, T* __restrict__ out,
+                              long long rows, int cu, int h, int w) {
+  using E = Elem<T>;
+  constexpr int V = VEC ? E::kVec : 1;
+  const int ho = h / 2, wo = w / 2;
+  const int row_units = wo * cu;
+  const long long col = (long long)w * cu;       // units a row of y
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long img = row / ho;
+    const long long top = (img * h + 2 * (row - img * ho)) * col;
+    const long long dst = row * row_units;
+    for (int j = threadIdx.x; j < row_units; j += blockDim.x) {
+      const int px = j / cu, cv = j - px * cu;
+      const long long t = top + 2LL * px * cu + cv;
+      const long long taps[4] = {t, t + cu, t + col, t + col + cu};
+      float m[V];
+      if constexpr (VEC) {
+        const uint4* y4 = reinterpret_cast<const uint4*>(y);
+        uint4 raw[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) raw[k] = __ldcs(y4 + taps[k]);
+        float b[V];
+        E::unpack(__ldg(reinterpret_cast<const uint4*>(bias) + cv), b);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float z[V];
+          E::unpack(raw[k], z);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float r = E::round(activate<ACT>(z[i] + b[i]));
+            m[i] = k ? pool_max(m[i], r) : r;
+          }
+        }
+        __stcs(reinterpret_cast<uint4*>(out) + dst + j, E::pack(m));
+      } else {
+        float raw[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) raw[k] = E::stream(y + taps[k]);
+        const float b = E::cached(bias + cv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float r = E::round(activate<ACT>(raw[k] + b));
+          m[0] = k ? pool_max(m[0], r) : r;
+        }
+        E::store(out + dst + j, m[0]);
+      }
+    }
+  }
+}
+
 // Streaming multiprocessors of the current device, read once per device.
 int sm_count() {
   static int counts[kMaxDevices] = {0};
@@ -238,6 +320,52 @@ cudaError_t by_act(const void* y, const void* pre, const void* bias,
   }
 }
 
+template <typename T, int ACT, bool VEC>
+cudaError_t launch_pool(const void* y, const void* bias, void* out, int n,
+                        int c, int h, int w, cudaStream_t stream) {
+  static int per_sm = 0;                // resident blocks per SM
+  if (!per_sm) {
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dvg_elementwise_epilogue_pool<T, ACT, VEC>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const long long rows = (long long)n * (h / 2);
+  long long blocks = rows;
+  const long long full = (long long)sm_count() * per_sm;
+  if (blocks > full) blocks = full;
+  dvg_elementwise_epilogue_pool<T, ACT, VEC>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(y), static_cast<const T*>(bias),
+      static_cast<T*>(out), rows, VEC ? c / Elem<T>::kVec : c, h, w);
+  return cudaGetLastError();
+}
+
+template <typename T, int ACT>
+cudaError_t pool_by_shape(const void* y, const void* bias, void* out, int n,
+                          int c, int h, int w, int vec, cudaStream_t s) {
+  return vec ? launch_pool<T, ACT, true>(y, bias, out, n, c, h, w, s)
+             : launch_pool<T, ACT, false>(y, bias, out, n, c, h, w, s);
+}
+
+template <typename T>
+cudaError_t pool_by_act(const void* y, const void* bias, void* out, int n,
+                        int c, int h, int w, int act, int vec,
+                        cudaStream_t s) {
+  switch (act) {
+    case kNone:
+      return pool_by_shape<T, kNone>(y, bias, out, n, c, h, w, vec, s);
+    case kLeakyRelu:
+      return pool_by_shape<T, kLeakyRelu>(y, bias, out, n, c, h, w, vec, s);
+    case kTanh:
+      return pool_by_shape<T, kTanh>(y, bias, out, n, c, h, w, vec, s);
+    case kSigmoid:
+      return pool_by_shape<T, kSigmoid>(y, bias, out, n, c, h, w, vec, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // out = act(y + pre + bias) over n elements of C channels; pre may be null.
@@ -256,4 +384,21 @@ extern "C" int dvg_conv_epilogue(const void* y, const void* pre,
   return is_bf16
              ? by_act<__nv_bfloat16>(y, pre, bias, out, n, c, inner, act, vec, s)
              : by_act<float>(y, pre, bias, out, n, c, inner, act, vec, s);
+}
+
+// out = maxpool2x2(act(y + bias)) for channels_last y (n, h, w, c) into
+// channels_last out (n, h/2, w/2, c), each tap rounded to the element type
+// before the max. vec: take the 16-byte path (the caller has checked c %
+// (16 / element size) == 0 and 16-byte aligned pointers). act as above.
+// Returns the launch's cudaError_t.
+extern "C" int dvg_conv_epilogue_pool(const void* y, const void* bias,
+                                      void* out, int n, int c, int h, int w,
+                                      int is_bf16, int act, int vec,
+                                      void* stream) {
+  if (n <= 0 || h < 2 || w < 2) return cudaSuccess;
+  if (c <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? pool_by_act<__nv_bfloat16>(y, bias, out, n, c, h, w, act,
+                                              vec, s)
+                 : pool_by_act<float>(y, bias, out, n, c, h, w, act, vec, s);
 }

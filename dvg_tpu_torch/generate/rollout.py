@@ -12,7 +12,12 @@ loop over a merged sample-major (K·B) batch (row k·B + b):
     replaces the LSTM's prediction with a GP sample of gp(h) — h = enc(x_in),
     not the prediction — then decodes with the skip halves hoisted out of
     the loop (`cfg.last_frame_skip`: the skips refresh from every step's
-    encode and the decode is the fused one);
+    encode and the decode is the fused one). A free step that does not
+    refresh its skips encodes without them (`DVGModel.encode(x,
+    skips=False)`): VGG's encoder then pools each group inside its last
+    conv's epilogue, and its decoders run each ×2 upsample folded into a
+    transposed conv (models/vgg.py), so the folded eval step runs no
+    resampling op;
   * `diverse_metrics` scores every step's frames against the f32 ground
     truth and returns {"ssim", "psnr", "mse"}, each (S, n_free, B) f32, by
     one of three metric routes (`make_rollout_fns`); the other paths
@@ -256,7 +261,7 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
                 p.repeat(k, 1, 1, 1) for p in m.decode_skip_pre(skip_b)]
         for t in range(n_free):
             with span("dvg.eval.encode"):
-                h, skips_new = m.encode(x_in)
+                h, skips_new = m.encode(x_in, skips=refresh)
             with span("dvg.eval.lstm"):
                 latent, hidden = m.predict_latent(hidden, h)
             if mean_mode:
@@ -488,7 +493,7 @@ def make_rollout_fns(model: DVGModel, cfg: DVGConfig) -> RolloutFns:
 
         triggers, values, thresholds = [], [], []
         for i in range(TRIGGER_WARMUP, n_eval):
-            h, _ = m.encode(x_in)
+            h, _ = m.encode(x_in, skips=False)
             value = var_norm(h)
             window = torch.cat([window[1:], value[None]])
             thresh = (window.mean(0)

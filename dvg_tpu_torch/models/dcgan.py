@@ -70,16 +70,18 @@ class Encoder(nn.Module):
                                     for ci, co in chans)
         self.head = L.conv_block(chans[-1][1], dim, 4, 1, 0)
 
-    def forward(self, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """x (B, H, W, C) → (h (B, dim), skips: per-stage NHWC maps)."""
+    def forward(self, x: torch.Tensor, skips: bool = True
+                ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """x (B, H, W, C) → (h (B, dim), skips: per-stage NHWC maps, None
+        where `skips` is False: every stage's map feeds the next, so the
+        work is the same)."""
         h = L.nchw(x)
-        skips = []
+        maps = []
         for stage in self.stages:
             h = stage(h, "leaky_relu")
-            skips.append(L.nhwc(h))
+            maps.append(L.nhwc(h))
         h = self.head(h, "tanh")
-        return h.reshape(h.shape[0], -1), skips
+        return h.reshape(h.shape[0], -1), maps if skips else None
 
     def train_forward(self, x: torch.Tensor, calls: int,
                       dtype: Optional[torch.dtype] = None, group=None

@@ -57,10 +57,12 @@ class DVGModel(nn.Module):
         return self.gp.z.device
 
     # -- pieces (all NHWC at the boundary) ------------------------------------
-    def encode(self, x: torch.Tensor
-               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """x (B, H, W, C) → (h (B, g_dim), skips)."""
-        return self.encoder(x)
+    def encode(self, x: torch.Tensor, skips: bool = True
+               ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """x (B, H, W, C) → (h (B, g_dim), skips); with `skips` False the
+        skips are None, and a folded VGG encoder writes no full group map
+        (`vgg.Encoder.forward`)."""
+        return self.encoder(x, skips)
 
     def decode(self, h: torch.Tensor, skips: List[torch.Tensor]
                ) -> torch.Tensor:

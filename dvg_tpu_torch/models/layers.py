@@ -3,7 +3,8 @@ BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, the VGG
 backbone's 2×2 max-pool and nearest ×2 upsample, BN folding and the init
 law. A BN-folded eval conv runs without its bias and ends in one epilogue
 pass (`conv_act`, `skip_epilogue`: `ops/epilogue.py`, K3 on the card) that
-adds the bias and a split conv's skip half and applies the activation.
+adds the bias and a split conv's skip half and applies the activation;
+`conv_act_pool` ends one whose full map nothing reads in the max-pool too.
 
 Counterpart of `dvg_tpu/models/layers.py`. Weights are kept in torch's own
 layouts (Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw)); the JAX
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, activate,
-                                         conv_epilogue)
+                                         conv_epilogue, conv_epilogue_pool)
 from dvg_tpu_torch.parallel.collectives import all_reduce_sum, world_size
 
 WEIGHT_STD = 0.02
@@ -101,6 +102,17 @@ def conv_act(conv: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
                          act)
 
 
+def conv_act_pool(conv: nn.Module, x: torch.Tensor, act: str
+                  ) -> torch.Tensor:
+    """`max_pool2d(conv_act(conv, x, act))` in one epilogue pass that writes
+    only the pooled map (`ops.epilogue.conv_epilogue_pool`: K3's pooled form
+    on the card), bitwise. The conv's output goes to it in channels_last
+    memory: a no-op for the model as `prepare()` leaves it."""
+    y = conv_apply(conv, x, bias=False)
+    return conv_epilogue_pool(y.contiguous(memory_format=torch.channels_last),
+                              conv.bias, act)
+
+
 def skip_epilogue(y: torch.Tensor, bias: torch.Tensor, pre: torch.Tensor,
                   act: str) -> torch.Tensor:
     """The epilogue of a split conv: its input half y (NCHW-shaped) plus its
@@ -168,6 +180,13 @@ class ConvBlock(nn.Module):
         return activate(F.batch_norm(
             self.conv(x), self.bn.running_mean, self.bn.running_var,
             self.bn.weight, self.bn.bias, training=False, eps=BN_EPS), act)
+
+    def pooled(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
+        """`forward`, then the 2×2 max-pool: for a folded block one
+        epilogue pass that writes only the pooled map (`conv_act_pool`)."""
+        if self.bn is None:
+            return conv_act_pool(self.conv, x, act)
+        return max_pool2d(self(x, act))
 
     def train_forward(self, x: torch.Tensor, calls: int,
                       dtype: Optional[torch.dtype] = None, group=None

@@ -15,7 +15,21 @@ Module names mirror the JAX package's tree (`groups.{i}.{j}`, `head`,
 here takes and returns NHWC tensors; inside, the convs run on NCHW-shaped
 channels_last views of the same memory. Only each decoder group's FIRST
 conv reads the skip concat, so only that conv splits by linearity in the
-grouped train decode and the hoisted eval decode.
+grouped train decode and the eval decodes.
+
+The BN-folded eval path runs no resampling op of its own:
+  * a nearest ×2 upsample followed by a 3×3 pad-1 conv is one stride-2,
+    kernel-4, pad-1 transposed conv of the small map, its taps the 3×3
+    taps summed per output phase (`fold_upsample`). `Decoder.fold_` builds
+    it for every group's up half (`Decoder.up`), and both eval decodes run
+    it instead of the upsample and the up half's conv: 4/9 of the FLOPs,
+    and no upsampled map;
+  * an encode that wants no skips (`Encoder.forward(x, skips=False)`, the
+    rollouts' frozen-skip free run) ends every group's last conv in K3's
+    pooled form (`layers.conv_act_pool`), which writes the pooled map
+    only; with skips, the full maps are kept and pooled by the stock op.
+The train path (`Encoder.train_forward`, `Decoder.grouped`) keeps the
+upsample and the max-pool.
 """
 
 from __future__ import annotations
@@ -59,6 +73,36 @@ def _group(chain: List[int]) -> nn.ModuleList:
                          for ci, co in zip(chain[:-1], chain[1:]))
 
 
+def _phase_taps(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """Along `dim`, the 3 taps of a conv after a nearest ×2 upsample as the
+    4 taps of a stride-2 transposed conv: output 2m reads input m (tap 1)
+    and m − 1 (tap 3), output 2m + 1 reads m + 1 (tap 0) and m (tap 2)."""
+    w0, w1, w2 = w.unbind(dim)
+    return torch.stack([w2, w1 + w2, w0 + w1, w0], dim)
+
+
+def fold_upsample(w: torch.Tensor) -> torch.Tensor:
+    """The weight (I, O, 4, 4) of the stride-2, pad-1 transposed conv equal
+    to a nearest ×2 upsample followed by the 3×3, pad-1 conv of weight w
+    (O, I, 3, 3): per axis w'[0] = w2, w'[1] = w1 + w2, w'[2] = w0 + w1,
+    w'[3] = w0, with no flip. Summed in w's dtype, on w's device, with no
+    host copy (it runs in every `prepare()`)."""
+    return _phase_taps(_phase_taps(w, 2), 3).transpose(0, 1)
+
+
+def _up_conv(first: nn.Conv2d) -> nn.ConvTranspose2d:
+    """A decoder group's first conv's up half (its first half of input
+    channels, the upsampled map's) folded with the upsample
+    (`fold_upsample`), as a module without bias, so that `prepare()` casts
+    and lays it out like every other weight."""
+    w = first.weight[:, :first.in_channels // 2]
+    up = nn.utils.skip_init(nn.ConvTranspose2d, w.shape[1], w.shape[0], 4,
+                            2, 1, bias=False, device=w.device, dtype=w.dtype)
+    with torch.no_grad():
+        up.weight.copy_(fold_upsample(w))
+    return up
+
+
 def _fold_groups(groups: nn.ModuleList) -> nn.ModuleList:
     return nn.ModuleList(nn.ModuleList(L.fold_conv_bn(b) for b in g)
                          for g in groups)
@@ -86,16 +130,24 @@ class Encoder(nn.Module):
         self.groups = nn.ModuleList(_group(c) for c in chains)
         self.head = L.conv_block(chains[-1][-1], dim, 4, 1, 0)
 
-    def forward(self, x: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """x (B, H, W, C) → (h (B, dim), skips: per-group NHWC maps)."""
+    def forward(self, x: torch.Tensor, skips: bool = True
+                ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
+        """x (B, H, W, C) → (h (B, dim), skips: per-group NHWC maps). With
+        `skips` False the skips are None and no group's full map is kept:
+        each group's last block ends in the max-pool (`ConvBlock.pooled`,
+        one K3 pass for a folded block); h is bitwise the same."""
         h = L.nchw(x)
-        skips = []
-        for i, group in enumerate(self.groups):
-            h = _blocks_eval(group, L.max_pool2d(h) if i else h)
-            skips.append(L.nhwc(h))
-        h = self.head(L.max_pool2d(h), "tanh")
-        return h.reshape(h.shape[0], -1), skips
+        maps = []
+        for group in self.groups:
+            h = _blocks_eval(group[:-1], h)
+            if skips:
+                h = group[-1](h, "leaky_relu")
+                maps.append(L.nhwc(h))
+                h = L.max_pool2d(h)
+            else:
+                h = group[-1].pooled(h, "leaky_relu")
+        h = self.head(h, "tanh")
+        return h.reshape(h.shape[0], -1), maps if skips else None
 
     def train_forward(self, x: torch.Tensor, calls: int,
                       dtype: Optional[torch.dtype] = None, group=None
@@ -133,10 +185,16 @@ class Decoder(nn.Module):
         self.head = L.upconv_block(dim, 512, 4, 1, 0)
         self.groups = nn.ModuleList(_group(c) for c in dec_groups(image_width))
         self.final = nn.ConvTranspose2d(64, nc, 3, 1, 1)
+        # each group's folded up half (`fold_upsample`), set by `fold_`
+        self.up: Optional[nn.ModuleList] = None
 
     def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
                 ) -> torch.Tensor:
-        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc)."""
+        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc).
+        A folded decoder takes `hoisted`'s split, its skip halves computed
+        on every call."""
+        if self.up is not None:
+            return self.hoisted(vec, self.skip_pre(skips))
         d = self.head(vec[:, :, None, None], "leaky_relu")
         for group, skip in zip(self.groups, reversed(skips)):
             d = _blocks_eval(group, torch.cat(
@@ -149,9 +207,13 @@ class Decoder(nn.Module):
 
     def fold_(self) -> None:
         """Fold every eval-mode BN into its conv, in place (the final
-        transposed conv has no BN)."""
+        transposed conv has no BN), then fold each group's up half and the
+        upsample before it into a transposed conv (`up`), in f32. The
+        group's first conv keeps its whole weight: its skip half and bias
+        are read from it."""
         self.head = L.fold_conv_bn(self.head)
         self.groups = _fold_groups(self.groups)
+        self.up = nn.ModuleList(_up_conv(g[0].conv) for g in self.groups)
 
     def grouped(self, vecs: torch.Tensor, skips_u: List[torch.Tensor],
                 group_idx: torch.Tensor, dtype: Optional[torch.dtype] = None,
@@ -210,8 +272,10 @@ class Decoder(nn.Module):
                 ) -> torch.Tensor:
         """Eval decode against `skip_pre`'s precomputed halves, with the
         contract of dcgan.Decoder.hoisted: a BN-folded decoder, each pre at
-        vec's batch; in bf16 each half rounds before the sum."""
-        if self.head.bn is not None:
+        vec's batch; in bf16 each half rounds before the sum. Each group's
+        up half is the folded transposed conv of the small map, its output
+        handed to the epilogue with the bias and the pre."""
+        if self.up is None:
             raise ValueError(
                 "decoder hoisted decode requires BN-folded params — call "
                 "model.fold_inference_params() first")
@@ -221,12 +285,10 @@ class Decoder(nn.Module):
                 f"latent batch {vec.shape[0]}; tile the pre to the latent "
                 "batch once, outside the loop")
         d = self.head(vec[:, :, None, None], "leaky_relu")
-        for group, pre in zip(self.groups, skip_pre):
-            up = L.upsample_nearest2d(d)
-            conv = group[0].conv
-            y = F.conv2d(up, conv.weight[:, :up.shape[1]], None, 1, 1)
+        for group, up, pre in zip(self.groups, self.up, skip_pre):
+            y = L.conv_apply(up, d, bias=False)
             d = _blocks_eval(group[1:], L.skip_epilogue(
-                y, conv.bias, pre, "leaky_relu"))
+                y, group[0].conv.bias, pre, "leaky_relu"))
         return L.nhwc(L.conv_act(self.final, d, "sigmoid"))
 
 

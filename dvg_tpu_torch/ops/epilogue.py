@@ -19,7 +19,21 @@ takes bf16 and f32, with the bias in y's dtype, and two layouts, read from
 y's strides: channels_last memory, where the channel of flat element i is
 i % C, and contiguous NCHW, where it is (i / (H·W)) % C; `_check` raises
 on any other layout and on a `pre` whose strides differ from y's, on the
-CPU too. `conv_epilogue.launches` counts the kernel's launches.
+CPU too. `conv_epilogue.launches` counts the kernel's launches, in both
+forms.
+
+`conv_epilogue_pool(y, bias, act)` is K3's pooled form, for a conv whose
+full output nothing else reads (a VGG encoder group's last conv when the
+caller wants no skips): the same sum, activation and single rounding of
+each element, then the 2×2 stride-2 max-pool (VALID, torch's order of the
+window and its NaN rule), writing only the pooled (N, C, H/2, W/2) map. It
+is bitwise `max_pool2d(conv_epilogue_plain(y, bias, None, act), 2, 2)`.
+It is the custom op `torch.ops.dvg_tpu_torch.conv_epilogue_pool`, out of
+place, with a plain CPU version (`conv_epilogue_pool_plain`), a CUDA
+implementation that launches the kernel or raises, and a fake; it has no
+autograd formula (no path differentiates it). It takes channels_last y
+only, and returns channels_last; `conv_epilogue_pool.launches` counts its
+launches, which `conv_epilogue.launches` counts too.
 
 Like ops/ssim_cuda.py, this module imports nothing of `models/`: importing
 it registers the op for a serving host.
@@ -44,13 +58,17 @@ VECTOR_BYTES = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # y, pre, bias, out, n, c, inner, is_bf16, act, vec, stream
 _SIGNATURE = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P]
+# y, bias, out, n, c, h, w, is_bf16, act, vec, stream
+_POOL_SIGNATURE = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL)
-    lib.dvg_conv_epilogue.argtypes = _SIGNATURE
-    lib.dvg_conv_epilogue.restype = ctypes.c_int
+    for fn, sig in ((lib.dvg_conv_epilogue, _SIGNATURE),
+                    (lib.dvg_conv_epilogue_pool, _POOL_SIGNATURE)):
+        fn.argtypes = sig
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -75,6 +93,21 @@ def conv_epilogue_plain(y: torch.Tensor, bias: torch.Tensor,
     if pre is not None:
         z = z + pre.to(at)
     return activate(z + bias.to(at)[:, None, None], act).to(y.dtype)
+
+
+def conv_epilogue_pool_plain(y: torch.Tensor, bias: torch.Tensor,
+                             act: str = "none") -> torch.Tensor:
+    """The pooled kernel's arithmetic in PyTorch: `conv_epilogue_plain`'s
+    rounded values, then the max of each 2×2 window taken as the kernel
+    takes it: the taps in row-major order, a later one kept if greater or
+    NaN. Returns channels_last."""
+    z = conv_epilogue_plain(y, bias, None, act)
+    ho, wo = y.shape[2] // 2, y.shape[3] // 2
+    taps = [z[:, :, i:2 * ho:2, j:2 * wo:2] for i in (0, 1) for j in (0, 1)]
+    m = taps[0]
+    for t in taps[1:]:
+        m = torch.where((t > m) | t.isnan(), t, m)
+    return m.contiguous(memory_format=torch.channels_last)
 
 
 def _dense_strides(t: torch.Tensor) -> tuple:
@@ -117,6 +150,19 @@ def _check(y: torch.Tensor, bias: torch.Tensor,
            pre: Optional[torch.Tensor], act: str) -> int:
     _check_shapes(y, bias, pre, act)
     return _inner(y, pre)
+
+
+def _check_pool(y: torch.Tensor, bias: torch.Tensor, act: str) -> None:
+    _check_shapes(y, bias, None, act)
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"the pooled epilogue takes channels_last y, got "
+                         f"strides {y.stride()}")
+
+
+def _pooled_like(y: torch.Tensor) -> torch.Tensor:
+    n, c, h, w = y.shape
+    return torch.empty((n, c, h // 2, w // 2), dtype=y.dtype, device=y.device,
+                       memory_format=torch.channels_last)
 
 
 def _check_cuda(y: torch.Tensor, bias: torch.Tensor,
@@ -193,6 +239,37 @@ def _backward(ctx, grad: torch.Tensor):
 _conv_epilogue.register_autograd(_backward, setup_context=_setup_context)
 
 
+def conv_epilogue_pool(y: torch.Tensor, bias: torch.Tensor,
+                       act: str = "none") -> torch.Tensor:
+    return torch.ops.dvg_tpu_torch.conv_epilogue_pool(y, bias, act)
+
+
+@torch.library.custom_op("dvg_tpu_torch::conv_epilogue_pool",
+                         mutates_args=(), device_types="cpu")
+def _conv_epilogue_pool(y: torch.Tensor, bias: torch.Tensor,
+                        act: str) -> torch.Tensor:
+    _check_pool(y, bias, act)
+    return conv_epilogue_pool_plain(y, bias, act)
+
+
+@_conv_epilogue_pool.register_kernel("cuda")
+def _conv_epilogue_pool_cuda(y: torch.Tensor, bias: torch.Tensor,
+                             act: str) -> torch.Tensor:
+    _check_pool(y, bias, act)
+    _check_cuda(y, bias, None)
+    out = launch_pool(y, bias, act)
+    conv_epilogue_pool.launches += 1
+    conv_epilogue.launches += 1
+    return out
+
+
+@_conv_epilogue_pool.register_fake
+def _conv_epilogue_pool_fake(y: torch.Tensor, bias: torch.Tensor,
+                             act: str) -> torch.Tensor:
+    _check_pool(y, bias, act)
+    return _pooled_like(y)
+
+
 def _raise_on(err: int) -> None:
     if err:
         raise RuntimeError(f"{KERNEL} kernel launch failed: cudaError {err}")
@@ -221,4 +298,22 @@ def launch(y: torch.Tensor, bias: torch.Tensor, pre: Optional[torch.Tensor],
     return out
 
 
+def launch_pool(y: torch.Tensor, bias: torch.Tensor, act: str
+                ) -> torch.Tensor:
+    """One launch of K3's pooled form on checked channels_last CUDA inputs
+    → the pooled map. Counts nothing: `conv_epilogue_pool` is the entry
+    point; this is its launch, exposed for timing the kernel alone."""
+    out = _pooled_like(y)
+    n, c, h, w = y.shape
+    vec = (c % (VECTOR_BYTES // y.element_size()) == 0
+           and _aligned(y, bias, out))
+    with torch.cuda.device(y.device):
+        _raise_on(_lib().dvg_conv_epilogue_pool(
+            y.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w,
+            int(y.dtype == torch.bfloat16), ACTS[act], int(vec),
+            torch.cuda.current_stream().cuda_stream))
+    return out
+
+
 conv_epilogue.launches = 0
+conv_epilogue_pool.launches = 0

@@ -202,6 +202,23 @@ def test_hoisted_decode_matches_jax(net):
                 _np(port.decode(h * (1 + 0.1 * k), skips)), atol=ATOL)
 
 
+def test_folded_fused_decode_matches_jax(net):
+    """The folded model's fused decode (VGG: the skip halves computed on the
+    call and each up half a folded transposed conv) against the JAX
+    package's fused decode, and the folded encode without skips gives the
+    same h."""
+    port, ref = net["port"], net["ref"]
+    folded = port.fold_inference_params()
+    with torch.no_grad():
+        x = torch.from_numpy(net["x"])
+        h, skips = folded.encode(x)
+        h_bare, none = folded.encode(x, skips=False)
+        assert none is None and torch.equal(h_bare, h)
+        np.testing.assert_allclose(_np(h), ref["h"], atol=ATOL)
+        np.testing.assert_allclose(_np(folded.decode(h, skips)),
+                                   ref["fused"], atol=ATOL)
+
+
 def test_grouped_decode_matches_jax(net):
     """The grouped train-mode decode of 4 calls over 2 unique skip frames
     (per-call BN): frames and every block's per-call statistics."""

@@ -293,6 +293,76 @@ def test_epilogue_refuses_what_it_does_not_take(cuda):
         E.conv_epilogue(y, bias, pre.contiguous(), "none")
 
 
+# K3's pooled form at the VGG-128 eval's five pooled maps (each encoder
+# group's last conv output at 800 frames), bf16 channels_last; in f32 an odd
+# size (the last row and column dropped); a channel count that is not a
+# multiple of 8 (scalar path)
+POOL_CASES = [((800, 64, 128, 128), torch.bfloat16),
+              ((800, 128, 64, 64), torch.bfloat16),
+              ((800, 256, 32, 32), torch.bfloat16),
+              ((800, 512, 16, 16), torch.bfloat16),
+              ((800, 512, 8, 8), torch.bfloat16),
+              ((16, 64, 33, 31), torch.float32),
+              ((16, 12, 32, 32), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", POOL_CASES)
+def test_pooled_epilogue_kernel_matches_plain(cuda, shape, dtype):
+    """Bitwise for none and leaky_relu, against the plain version and
+    against max_pool2d of the plain epilogue; tanh and sigmoid as K3's."""
+    import torch.nn.functional as F
+    from dvg_tpu_torch.ops import epilogue as E
+    y, bias, _ = _epilogue_inputs(cuda, shape, dtype, "channels_last")
+    for act in E.ACTS:
+        before = (E.conv_epilogue.launches, E.conv_epilogue_pool.launches)
+        got = E.conv_epilogue_pool(y, bias, act)
+        torch.cuda.synchronize()
+        assert (E.conv_epilogue.launches,
+                E.conv_epilogue_pool.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        _epilogue_close(got, E.conv_epilogue_pool_plain(y, bias, act), act)
+        if act in ("none", "leaky_relu"):
+            assert torch.equal(got, F.max_pool2d(
+                E.conv_epilogue_plain(y, bias, None, act), 2, 2))
+        del got
+    torch.cuda.empty_cache()
+
+
+def test_pooled_epilogue_misaligned_and_refusals(cuda):
+    """Storage off a 16-byte boundary takes the scalar path; NCHW y and a
+    bias of another dtype are refused."""
+    from dvg_tpu_torch.ops import epilogue as E
+    y, bias, _ = _epilogue_inputs(cuda, (4, 16, 8, 8), torch.bfloat16,
+                                  "channels_last")
+    y = _misaligned(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    got = E.conv_epilogue_pool(y, bias, "leaky_relu")
+    assert torch.equal(got, E.conv_epilogue_pool_plain(y, bias,
+                                                       "leaky_relu"))
+    with pytest.raises(ValueError, match="channels_last"):
+        E.conv_epilogue_pool(y.contiguous(), bias, "none")
+    with pytest.raises(TypeError, match="bias must be"):
+        E.conv_epilogue_pool(y, bias.float(), "none")
+
+
+def test_folded_up_halves_come_out_channels_last(cuda):
+    """On the prepared bf16 VGG-128 model each folded transposed conv gives
+    channels_last, so the epilogue copies nothing."""
+    from dvg_tpu_torch.models import layers as L
+    cfg = DVGConfig(**dict(TINY, model="vgg", image_width=128,
+                           dtype="bfloat16"))
+    p = make_rollout_fns(DVGModel(cfg, seed=0, device=cuda), cfg).prepare()
+    dec = p.model.decoder
+    for i, up in enumerate(dec.up):
+        side = 4 * 2 ** i
+        d = torch.randn((8, up.in_channels, side, side), device=cuda,
+                        dtype=torch.bfloat16).contiguous(
+                            memory_format=torch.channels_last)
+        y = L.conv_apply(up, d, bias=False)
+        assert y.shape == (8, up.out_channels, 2 * side, 2 * side)
+        assert y.is_contiguous(memory_format=torch.channels_last), i
+
+
 # ---------------------------------------------------------------------------
 # generation and checkpoints, card against CPU
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ the CPU, where the op runs its plain version:
 The kernel against the plain version on the card: tests/test_torch_cuda.py.
 """
 
+import copy
 import itertools
 import re
 from pathlib import Path
@@ -228,12 +229,11 @@ def test_folded_backbone_against_the_composition(nets, net, entry, dtype):
     the map's RMS (measured ≤ 3%)."""
     enc, dec, x = nets[net]
     ref32 = _run(entry, net, enc, dec, x, True)
-    enc_t, dec_t = (m.to(dtype) for m in (enc, dec))
-    try:
-        got = _run(entry, net, enc_t, dec_t, x.to(dtype), False)
-        before = _run(entry, net, enc_t, dec_t, x.to(dtype), True)
-    finally:
-        enc.float(), dec.float()
+    # cast copies: a bf16 round trip of the shared modules would round the
+    # folded up halves (sums of weights) apart from the weights they sum
+    enc_t, dec_t = (copy.deepcopy(m).to(dtype) for m in (enc, dec))
+    got = _run(entry, net, enc_t, dec_t, x.to(dtype), False)
+    before = _run(entry, net, enc_t, dec_t, x.to(dtype), True)
     assert len(got) == len(before)
 
     def rms(t):
@@ -291,18 +291,22 @@ def test_folded_block_exports_with_the_op():
 
 
 def test_kernel_name_is_in_the_elementwise_group():
-    """The kernel's symbol, read from its source, falls in the frozen
-    KERNEL_GROUPS' elementwise group, so `elementwise_ms_per_call.eval`
-    keeps counting the work, and the engagement reader counts it."""
+    """The kernels' symbols (the epilogue and its pooled form), read from
+    their source, fall in the frozen KERNEL_GROUPS' elementwise group, so
+    `elementwise_ms_per_call.eval` keeps counting the work, and the
+    engagement reader counts both."""
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s+)?(\w+)\s*\(", SOURCE.read_text())
-    assert names == ["dvg_elementwise_epilogue"]
-    traced = (f"void (anonymous namespace)::{names[0]}<__nv_bfloat16, 1, "
-              "true, true>(__nv_bfloat16 const*, long long, int, int)")
-    assert group_of(traced, KERNEL_GROUPS) == ELEMENTWISE
+    assert names == ["dvg_elementwise_epilogue",
+                     "dvg_elementwise_epilogue_pool"]
+    traced = [f"void (anonymous namespace)::{name}<__nv_bfloat16, 1, "
+              "true, true>(__nv_bfloat16 const*, long long, int, int)"
+              for name in names]
+    for name in traced:
+        assert group_of(name, KERNEL_GROUPS) == ELEMENTWISE
     read = reader("epilogue_launches_per_call.eval")
     spans = [("bench.window", 0.0, 100.0)]
-    kernels = [(traced, 10.0 * i, 10.0 * i + 5) for i in range(6)]
+    kernels = [(traced[i % 2], 10.0 * i, 10.0 * i + 5) for i in range(6)]
     assert read(Trace(kernels + [("sm90_fprop", 1.0, 2.0)], [], spans, [],
                       2), {}) == 3.0
     assert read(Trace([("sm90_fprop", 1.0, 2.0)], [], spans, [], 2),
