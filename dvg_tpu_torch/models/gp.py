@@ -16,6 +16,12 @@ so a rollout step needs one (D, B, M) kernel row and three small matmuls:
   mean = μ + K_XZ v1,  var = k(x,x) − ‖K_XZ W‖² + ‖K_XZ v2‖².
 The Cholesky, the triangular solves and the ELBO run in at least f32 (f64
 parameters stay f64).
+
+Every Cholesky here (`_chol`) follows `jnp.linalg.cholesky`'s failure law,
+decided on the device: a matrix that is not positive definite factors to
+NaN on and below the diagonal and 0 above it, and nothing is read back to
+the host, so the callers' work stays queued on the card. A failed factor
+shows as a non-finite loss or NaN outputs, as in `dvg_tpu`.
 """
 
 from __future__ import annotations
@@ -94,14 +100,25 @@ def kernel_diag(gp: SVGP, n: int) -> torch.Tensor:
     return os_[:, None].expand(os_.shape[0], n)
 
 
+def _chol(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of each matrix of `a` (..., n, n), with no host
+    check: a member that is not positive definite comes back NaN on and
+    below the diagonal and 0 above it (`jnp.linalg.cholesky`'s law), chosen
+    on the device. A positive definite member's factor, and its gradient,
+    are `torch.linalg.cholesky`'s bit for bit."""
+    l, info = torch.linalg.cholesky_ex(a, check_errors=False)
+    return torch.where((info != 0)[..., None, None], math.nan, l).tril()
+
+
 def kzz_chol(gp: SVGP, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """chol(K_ZZ + jitter·I) in `dtype` (default: the parameters', at least
-    f32)."""
+    f32). A task whose K_ZZ is not positive definite factors to NaN on and
+    below the diagonal, never to a host check (`_chol`), as in `dvg_tpu`."""
     dt = dtype or acc_dtype(gp.z.dtype)
     z = gp.z.to(dt)
     kzz = rbf_cross(gp, z, z)
     eye = torch.eye(z.shape[1], dtype=dt, device=kzz.device)
-    return torch.linalg.cholesky(kzz + JITTER * eye)
+    return _chol(kzz + JITTER * eye)
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +194,7 @@ def rsample(gp: SVGP, lik: "GaussianLikelihood", x: torch.Tensor,
         mean, cov = posterior_full_cov(gp, x)
         ct = mean.dtype
         eye = torch.eye(x.shape[1], dtype=ct, device=cov.device)
-        chol = torch.linalg.cholesky(
-            cov + (noise.to(ct)[..., None] + JITTER) * eye)
+        chol = _chol(cov + (noise.to(ct)[..., None] + JITTER) * eye)
         e = _standard_normal(mean, generator, eps)
         return (mean + (chol @ e[..., None])[..., 0]).to(x.dtype)
     post = posterior(gp, x)
@@ -309,7 +325,7 @@ def cached_rsample_fullcov(cache: GPCache, x: torch.Tensor,
     b = x.shape[-2]
     eye = torch.eye(b, dtype=f32, device=x.device)
     cov = cov + (c.noise[:, None, None] + JITTER) * eye
-    chol = torch.linalg.cholesky(cov)
+    chol = _chol(cov)
     return (mean + (chol @ eps.to(f32)[..., None])[..., 0]).to(x.dtype)
 
 

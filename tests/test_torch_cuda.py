@@ -464,6 +464,36 @@ def test_train_state_round_trip_on_card(cuda, tmp_path):
     assert all(torch.isfinite(v).item() for v in metrics.values())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_and_prepare_never_wait_on_the_card(cuda, dtype):
+    """At __graft_entry__._tiny_cfg (its fields as parallel.dryrun.TINY),
+    after one warm-up step (it builds the step's plan and cuDNN's
+    choices), two steps and one prepare() run under
+    torch.cuda.set_sync_debug_mode("error"): no call in them waits for the
+    card, so the host can run ahead of it and the step can be captured."""
+    from dvg_tpu_torch.parallel.dryrun import TINY as GRAFT_TINY
+    cfg = DVGConfig(**dict(GRAFT_TINY, dtype=dtype, seed=3))
+    state = init_train_state(cfg, device="cuda")
+    step = make_train_step(cfg)
+    fns = make_rollout_fns(state.model, cfg)
+    x = torch.rand((cfg.seq_len_train, cfg.batch_size, cfg.image_width,
+                    cfg.image_width, cfg.channels),
+                   generator=torch.Generator(device="cuda").manual_seed(3),
+                   device="cuda")
+    step(state, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            _, metrics = step(state, x)
+        prep = fns.prepare()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.step == 3
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert all(bool(torch.isfinite(t).all()) for t in prep.cache32)
+
+
 def test_reference_import_card_matches_cpu(cuda, tmp_path):
     """chip_smoke.py's tiny [import] step as a test: a DCGAN-64 `.pth` in
     the reference's schema imported and run on the card equals the same

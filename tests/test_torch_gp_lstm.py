@@ -6,7 +6,9 @@ f32, same weights (carried across by `params_from_jax`) and the same numpy
 / JAX-derived noise. Tolerances: atol 1e-5; W of the cache also rtol 1e-4
 (the triangular inverse amplifies the Cholesky's rounding by K_ZZ's
 condition number); the full-covariance sample 1e-4 (a (B, B) Cholesky of
-a cancelling sum)."""
+a cancelling sum). The Cholesky's failure law (`_chol`: NaN on and below
+the diagonal, 0 above, as jnp.linalg.cholesky) and `kzz_chol`'s bitwise
+agreement with torch.linalg.cholesky, gradient included."""
 
 import numpy as np
 import pytest
@@ -268,3 +270,67 @@ def test_dvg_gp_wrappers(models, name):
     for g, r in zip(got, ref):
         assert tuple(g.shape) == tuple(np.shape(r))
         np.testing.assert_allclose(_np(g), np.asarray(r), atol=tol)
+
+
+def _chol_batch(dtype):
+    """Three 8×8 symmetric matrices: two positive definite, the middle one
+    with a negative pivot at column 5, so a factorisation fails halfway."""
+    rng = np.random.RandomState(20)
+    a = rng.normal(size=(3, 8, 8))
+    mats = a @ a.transpose(0, 2, 1) + 8.0 * np.eye(8)
+    mats[1, 4, 4] -= 200.0
+    return mats.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chol_failure_law_matches_jax(dtype):
+    """The non-positive-definite member factors to NaN on and below the
+    diagonal and 0 above it, as dvg_tpu's jnp.linalg.cholesky gives; the
+    others equal torch.linalg.cholesky bitwise and jnp.linalg.cholesky
+    within the file's tolerance."""
+    mats = _chol_batch(dtype)
+    got = tgp._chol(torch.from_numpy(mats))
+    ref = np.asarray(jnp.linalg.cholesky(jnp.asarray(mats)))
+    assert got.dtype == torch.from_numpy(mats).dtype
+    low = np.tril(np.ones((8, 8), bool))
+    bad = _np(got[1])
+    assert np.isnan(bad[low]).all() and (bad[~low] == 0).all()
+    np.testing.assert_array_equal(np.isnan(bad), np.isnan(ref[1]))
+    np.testing.assert_array_equal(bad[~low], ref[1][~low])
+    good = torch.from_numpy(mats[[0, 2]])
+    assert torch.equal(got[[0, 2]], torch.linalg.cholesky(good))
+    np.testing.assert_allclose(_np(got[[0, 2]]), ref[[0, 2]], atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kzz_chol_equals_cholesky_with_its_gradient(dtype):
+    """At __graft_entry__._tiny_cfg's GP, kzz_chol is torch.linalg.cholesky
+    of K_ZZ + jitter·I bit for bit, and so is its gradient in every GP
+    parameter it reads."""
+    import __graft_entry__
+    cfg = DVGConfig.from_dict(__graft_entry__._tiny_cfg().to_dict())
+    gp = DVGModel(cfg, seed=0, device="cpu").gp.to(dtype)
+    m = cfg.num_inducing_points
+    cot = torch.randn((cfg.g_dim, m, m),
+                      generator=torch.Generator().manual_seed(21),
+                      dtype=dtype)
+
+    def chol_and_grads(fn):
+        gp.zero_grad()
+        l = fn()
+        (l * cot).sum().backward()
+        return l.detach(), [p.grad.clone() for p in
+                            (gp.z, gp.raw_outputscale, gp.raw_lengthscale)]
+
+    def stock():
+        z = gp.z.to(dtype)
+        eye = torch.eye(z.shape[1], dtype=dtype)
+        return torch.linalg.cholesky(tgp.rbf_cross(gp, z, z)
+                                     + tgp.JITTER * eye)
+
+    got, got_g = chol_and_grads(lambda: tgp.kzz_chol(gp))
+    want, want_g = chol_and_grads(stock)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    for g, w in zip(got_g, want_g):
+        assert torch.equal(g, w)
