@@ -3,8 +3,10 @@
 diverse_select, diverse_select_pairs, diverse_rollout_with_keys,
 plot_samples and gp_trigger; and `best_of_n`.
 
-Every sampled path rolls its K futures of a (T, B, H, W, C) clip as one
-loop over a merged sample-major (K·B) batch (row k·B + b):
+Every path rolls `prepare()`'s copy of the model, each BatchNorm folded
+into its conv (`DVGModel.fold_inference_params()`): the one form the eval
+forward runs. Every sampled path rolls its K futures of a (T, B, H, W, C)
+clip as one loop over a merged sample-major (K·B) batch (row k·B + b):
   * context: frames 0..n_past−2 warm the LSTM; the skips are frozen at
     frame n_past−2; the free run starts from x_in = x[n_past−1];
   * every step encodes x_in, advances the LSTM, and on the fork steps
@@ -16,8 +18,8 @@ loop over a merged sample-major (K·B) batch (row k·B + b):
     refresh its skips encodes without them (`DVGModel.encode(x,
     skips=False)`): VGG's encoder then pools each group inside its last
     conv's epilogue, and its decoders run each ×2 upsample folded into a
-    transposed conv (models/vgg.py), so the folded eval step runs no
-    resampling op;
+    transposed conv (models/vgg.py), so the eval step runs no resampling
+    op;
   * `diverse_metrics` scores every step's frames against the f32 ground
     truth and returns {"ssim", "psnr", "mse"}, each (S, n_free, B) f32, by
     one of three metric routes (`make_rollout_fns`); the other paths

@@ -13,6 +13,10 @@
 Every function here takes and returns NHWC tensors; inside, the convs run
 on NCHW-shaped channels_last views of the same memory.
 
+The eval forward runs on the BN-folded model only (`fold_`, reached through
+`DVGModel.fold_inference_params()` or the rollouts' `prepare()`), each conv
+ending in one epilogue pass (`layers.conv_act`, `layers.skip_epilogue`).
+
 Train mode (`Encoder.train_forward`, `Decoder.grouped`) normalizes by the
 batch statistics of each call of a leading call axis and returns them, in
 at least f32, for the running-statistics fold of `train/step.py`, in the
@@ -21,13 +25,14 @@ order of `bn_blocks()`.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dvg_tpu_torch.models import layers as L
+from dvg_tpu_torch.ops.epilogue import activate
 
 NF = 64
 
@@ -55,11 +60,11 @@ def decoder_stage_channels(image_width: int) -> List[Tuple[int, int]]:
         f"dcgan backbone supports image_width 64|128, got {image_width}")
 
 
-def final_activation(image_width: int) -> Callable[[torch.Tensor],
-                                                    torch.Tensor]:
-    """The final transposed conv's activation; its `__name__` is its key in
-    `ops.epilogue.ACTS`, which the eval paths' epilogue takes."""
-    return torch.tanh if image_width == 64 else torch.sigmoid
+def final_activation(image_width: int) -> str:
+    """The final transposed conv's activation, as its key in
+    `ops.epilogue.ACTS`: the train decode applies it with
+    `ops.epilogue.activate`, the eval decodes' epilogue takes it."""
+    return "tanh" if image_width == 64 else "sigmoid"
 
 
 class Encoder(nn.Module):
@@ -132,7 +137,7 @@ class Decoder(nn.Module):
             d = stage(torch.cat([d, L.nchw(skip)], dim=1), "leaky_relu")
         return L.nhwc(L.conv_act(
             self.final, torch.cat([d, L.nchw(skips[0])], dim=1),
-            self.final_act.__name__))
+            self.final_act))
 
     def bn_blocks(self) -> List[L.ConvBlock]:
         """The BN blocks in the order of `grouped`'s statistics."""
@@ -184,7 +189,8 @@ class Decoder(nn.Module):
             d = L.leaky_relu(y)
             stats.append(st)
         y = split_conv_t(self.final, d, skips_u[0])
-        return L.nhwc(self.final_act(y)).unflatten(0, (n, b)), stats
+        y = activate(y, self.final_act)
+        return L.nhwc(y).unflatten(0, (n, b)), stats
 
     def _weights(self):
         """(weight, bias) of every stage after the head, then the final —
@@ -212,17 +218,13 @@ class Decoder(nn.Module):
         BN-folded decoder (`fold_`) and each pre at vec's batch: the merged
         sample·batch caller tiles the pre ONCE before its loop. In bf16
         each half rounds to bf16 before the sum, as in the JAX package."""
-        if self.head.bn is not None:
-            raise ValueError(
-                "decoder hoisted decode requires BN-folded params — call "
-                "model.fold_inference_params() first")
         if skip_pre[0].shape[0] != vec.shape[0]:
             raise ValueError(
                 f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
                 f"latent batch {vec.shape[0]}; tile the pre to the latent "
                 "batch once, outside the loop")
         d = self.head(vec[:, :, None, None], "leaky_relu")
-        acts = ["leaky_relu"] * len(self.stages) + [self.final_act.__name__]
+        acts = ["leaky_relu"] * len(self.stages) + [self.final_act]
         for (w, b), pre, act in zip(self._weights(), skip_pre, acts):
             y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
             d = L.skip_epilogue(y, b, pre, act)

@@ -8,9 +8,12 @@ predictor and the g_dim-task SVGP with its Gaussian likelihood, as one
 Parameters are built with gradients on (torch's default): the train step
 (`train/step.py`) takes them through the train-mode pieces
 (`Encoder.train_forward`, `Decoder.grouped`,
-`LSTMPredictor.teacher_forced`, `gp.elbo`), and the entries below are the
-eval-mode ones, which BatchNorm runs with its running statistics. The
-rollouts call them under `torch.inference_mode()`, which records no graph.
+`LSTMPredictor.teacher_forced`, `gp.elbo`). The entries below are the
+eval-mode ones, and they run on one form of the model: the copy that
+`fold_inference_params()` makes, every BatchNorm folded into its conv by
+its running statistics (the rollouts' `prepare()` makes it on each call).
+On the model itself the conv entries raise. The rollouts call them under
+`torch.inference_mode()`, which records no graph.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ class DVGModel(nn.Module):
     def encode(self, x: torch.Tensor, skips: bool = True
                ) -> Tuple[torch.Tensor, Optional[List[torch.Tensor]]]:
         """x (B, H, W, C) → (h (B, g_dim), skips); with `skips` False the
-        skips are None, and a folded VGG encoder writes no full group map
+        skips are None, and the VGG encoder writes no full group map
         (`vgg.Encoder.forward`)."""
         return self.encoder(x, skips)
 
@@ -71,7 +74,7 @@ class DVGModel(nn.Module):
 
     def decode_skip_pre(self, skips: List[torch.Tensor]) -> List[torch.Tensor]:
         """The frozen-skip half of every decoder stage, computed once per
-        rollout. Pair with `decode_hoisted` on BN-folded weights."""
+        rollout, for `decode_hoisted`."""
         return self.decoder.skip_pre(skips)
 
     def decode_hoisted(self, h: torch.Tensor, skip_pre: List[torch.Tensor]
@@ -132,7 +135,7 @@ class DVGModel(nn.Module):
 
     def fold_inference_params(self) -> "DVGModel":
         """A copy with every eval-mode BatchNorm folded into its conv (f32
-        math): the same outputs, minus one elementwise pass per block."""
+        math): the form the eval entries run."""
         folded = copy.deepcopy(self)
         folded.encoder.fold_()
         folded.decoder.fold_()

@@ -1,10 +1,11 @@
-"""Layer pieces of the port: conv blocks with eval-mode and train-mode
-BatchNorm, the torch-style transposed conv, LeakyReLU 0.2, the VGG
-backbone's 2×2 max-pool and nearest ×2 upsample, BN folding and the init
-law. A BN-folded eval conv runs without its bias and ends in one epilogue
-pass (`conv_act`, `skip_epilogue`: `ops/epilogue.py`, K3 on the card) that
-adds the bias and a split conv's skip half and applies the activation;
-`conv_act_pool` ends one whose full map nothing reads in the max-pool too.
+"""Layer pieces of the port: conv blocks with train-mode BatchNorm and
+its fold into the conv, the torch-style transposed conv, LeakyReLU 0.2, the
+VGG backbone's 2×2 max-pool and nearest ×2 upsample, and the init law. The
+eval form of a block is its BN-folded one (`fold_conv_bn`): the conv runs
+without its bias and ends in one epilogue pass (`conv_act`,
+`skip_epilogue`: `ops/epilogue.py`, K3 on the card) that adds the bias and
+a split conv's skip half and applies the activation; `ConvBlock.pooled`
+ends one whose full map nothing reads in the max-pool too.
 
 Counterpart of `dvg_tpu/models/layers.py`. Weights are kept in torch's own
 layouts (Conv2d (O, I, kh, kw), ConvTranspose2d (I, O, kh, kw)); the JAX
@@ -27,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, activate,
-                                         conv_epilogue, conv_epilogue_pool)
+from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, conv_epilogue,
+                                         conv_epilogue_pool)
 from dvg_tpu_torch.parallel.collectives import all_reduce_sum, world_size
 
 WEIGHT_STD = 0.02
@@ -102,17 +103,6 @@ def conv_act(conv: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
                          act)
 
 
-def conv_act_pool(conv: nn.Module, x: torch.Tensor, act: str
-                  ) -> torch.Tensor:
-    """`max_pool2d(conv_act(conv, x, act))` in one epilogue pass that writes
-    only the pooled map (`ops.epilogue.conv_epilogue_pool`: K3's pooled form
-    on the card), bitwise. The conv's output goes to it in channels_last
-    memory: a no-op for the model as `prepare()` leaves it."""
-    y = conv_apply(conv, x, bias=False)
-    return conv_epilogue_pool(y.contiguous(memory_format=torch.channels_last),
-                              conv.bias, act)
-
-
 def skip_epilogue(y: torch.Tensor, bias: torch.Tensor, pre: torch.Tensor,
                   act: str) -> torch.Tensor:
     """The epilogue of a split conv: its input half y (NCHW-shaped) plus its
@@ -160,33 +150,36 @@ def batch_norm_train(y: torch.Tensor, weight: torch.Tensor,
 
 
 class ConvBlock(nn.Module):
-    """A conv (plain or transposed) followed by BatchNorm: eval mode in
-    `forward`, train mode with per-call batch statistics in `train_forward`.
-    After `fold_conv_bn` the BN is gone and the conv carries it (`bn is
-    None`)."""
+    """A conv (plain or transposed) followed by BatchNorm. `train_forward`
+    runs train mode with per-call batch statistics; the eval forms,
+    `forward` and `pooled`, run only after `fold_conv_bn` has folded the
+    BN into the conv (`bn is None`), and refuse a block that holds it."""
 
     def __init__(self, conv: nn.Module, bn: Optional[nn.BatchNorm2d]):
         super().__init__()
         self.conv = conv
         self.bn = bn
 
+    def _folded(self) -> nn.Module:
+        if self.bn is not None:
+            raise ValueError("eval forward requires BN-folded params — call "
+                             "model.fold_inference_params() or fold_() first")
+        return self.conv
+
     def forward(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
-        """Eval mode, then the activation `act` (a key of
-        `ops.epilogue.ACTS`). A folded block ends in one epilogue pass
-        (`conv_act`); a block that holds its BN runs conv, BN and `act` as
-        three ops."""
-        if self.bn is None:
-            return conv_act(self.conv, x, act)
-        return activate(F.batch_norm(
-            self.conv(x), self.bn.running_mean, self.bn.running_var,
-            self.bn.weight, self.bn.bias, training=False, eps=BN_EPS), act)
+        """Eval mode: the conv, then its bias and the activation `act` (a
+        key of `ops.epilogue.ACTS`) in one epilogue pass (`conv_act`)."""
+        return conv_act(self._folded(), x, act)
 
     def pooled(self, x: torch.Tensor, act: str = "none") -> torch.Tensor:
-        """`forward`, then the 2×2 max-pool: for a folded block one
-        epilogue pass that writes only the pooled map (`conv_act_pool`)."""
-        if self.bn is None:
-            return conv_act_pool(self.conv, x, act)
-        return max_pool2d(self(x, act))
+        """`max_pool2d(forward(x, act))`, bitwise, in one epilogue pass that
+        writes only the pooled map (`ops.epilogue.conv_epilogue_pool`: K3's
+        pooled form on the card), from the conv's output in channels_last
+        memory (a no-op for the model as `prepare()` leaves it)."""
+        conv = self._folded()
+        y = conv_apply(conv, x, bias=False)
+        return conv_epilogue_pool(
+            y.contiguous(memory_format=torch.channels_last), conv.bias, act)
 
     def train_forward(self, x: torch.Tensor, calls: int,
                       dtype: Optional[torch.dtype] = None, group=None

@@ -17,7 +17,9 @@ channels_last views of the same memory. Only each decoder group's FIRST
 conv reads the skip concat, so only that conv splits by linearity in the
 grouped train decode and the eval decodes.
 
-The BN-folded eval path runs no resampling op of its own:
+The eval forward runs on the BN-folded model only (`fold_`, reached
+through `DVGModel.fold_inference_params()` or the rollouts' `prepare()`),
+and runs no resampling op of its own where it keeps no skips:
   * a nearest ×2 upsample followed by a 3×3 pad-1 conv is one stride-2,
     kernel-4, pad-1 transposed conv of the small map, its taps the 3×3
     taps summed per output phase (`fold_upsample`). `Decoder.fold_` builds
@@ -26,7 +28,7 @@ The BN-folded eval path runs no resampling op of its own:
     and no upsampled map;
   * an encode that wants no skips (`Encoder.forward(x, skips=False)`, the
     rollouts' frozen-skip free run) ends every group's last conv in K3's
-    pooled form (`layers.conv_act_pool`), which writes the pooled map
+    pooled form (`layers.ConvBlock.pooled`), which writes the pooled map
     only; with skips, the full maps are kept and pooled by the stock op.
 The train path (`Encoder.train_forward`, `Decoder.grouped`) keeps the
 upsample and the max-pool.
@@ -190,16 +192,9 @@ class Decoder(nn.Module):
 
     def forward(self, vec: torch.Tensor, skips: List[torch.Tensor]
                 ) -> torch.Tensor:
-        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc).
-        A folded decoder takes `hoisted`'s split, its skip halves computed
-        on every call."""
-        if self.up is not None:
-            return self.hoisted(vec, self.skip_pre(skips))
-        d = self.head(vec[:, :, None, None], "leaky_relu")
-        for group, skip in zip(self.groups, reversed(skips)):
-            d = _blocks_eval(group, torch.cat(
-                [L.upsample_nearest2d(d), L.nchw(skip)], dim=1))
-        return L.nhwc(L.conv_act(self.final, d, "sigmoid"))
+        """Fused eval decode: (vec (B, dim), encoder skips) → (B, H, W, nc),
+        `hoisted`'s split with the skip halves computed on the call."""
+        return self.hoisted(vec, self.skip_pre(skips))
 
     def bn_blocks(self) -> List[L.ConvBlock]:
         """The head, then every group's blocks in order."""
@@ -275,10 +270,6 @@ class Decoder(nn.Module):
         vec's batch; in bf16 each half rounds before the sum. Each group's
         up half is the folded transposed conv of the small map, its output
         handed to the epilogue with the bias and the pre."""
-        if self.up is None:
-            raise ValueError(
-                "decoder hoisted decode requires BN-folded params — call "
-                "model.fold_inference_params() first")
         if skip_pre[0].shape[0] != vec.shape[0]:
             raise ValueError(
                 f"hoisted decode: skip_pre batch {skip_pre[0].shape[0]} != "
@@ -313,10 +304,14 @@ class GaussianEncoder(nn.Module):
     def forward(self, x: torch.Tensor, eps: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            List[torch.Tensor]]:
-        """Eval mode (BN running statistics): x (B, H, W, C) → (z, mu,
-        logvar, skips)."""
+        """Eval mode, on the folded trunk (`fold_`): x (B, H, W, C) → (z,
+        mu, logvar, skips)."""
         h, skips = self.trunk(x)
         return self._head(h, eps) + (skips,)
+
+    def fold_(self) -> None:
+        """Fold the trunk's eval-mode BNs into its convs, in place."""
+        self.trunk.fold_()
 
     def train_forward(self, x: torch.Tensor, eps: torch.Tensor,
                       group=None):

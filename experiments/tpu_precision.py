@@ -246,15 +246,16 @@ def xla_bias_sum() -> None:
     def patched(self, vecs, skips_u, group_idx, dtype=None, group=None):
         if dtype != torch.bfloat16:
             return grouped(self, vecs, skips_u, group_idx, dtype, group)
-        final, act = self.final, self.final_act
+        final, activate = self.final, dcgan.activate
         bias = final.bias
         final._parameters["bias"] = torch.zeros_like(bias)
-        self.final_act = lambda y: act(_XlaBiasAdd.apply(
-            y, bias.to(dtype), vecs.shape[0]))
+        # `grouped` applies only its final activation through `activate`
+        dcgan.activate = lambda y, act: activate(_XlaBiasAdd.apply(
+            y, bias.to(dtype), vecs.shape[0]), act)
         try:
             return grouped(self, vecs, skips_u, group_idx, dtype, group)
         finally:
-            final._parameters["bias"], self.final_act = bias, act
+            final._parameters["bias"], dcgan.activate = bias, activate
 
     dcgan.Decoder.grouped = patched
 

@@ -4,7 +4,9 @@ weights (carried across by `params_from_jax`) and the same numpy inputs.
 
 Per backbone, at g_dim 16 and batch 2 (the widths are the backbone's own),
 against one JAX reference run per backbone shared by the module:
-  * the fused eval forward and the hoisted eval decode, f32, atol 1e-5;
+  * the port's BN-folded model (its one eval form) against dvg_tpu's eval
+    forward on the unfolded weights, and its hoisted decode against
+    dvg_tpu's, f32, atol 1e-5;
   * the grouped train-mode decode (4 calls over 2 unique skip frames) and
     its per-call BN statistics, f32, atol 1e-5;
   * an eval checkpoint written by each package read by the other, every
@@ -113,11 +115,12 @@ def net(request):
     params, stats = perturb(*jmodel.init(jax.random.PRNGKey(0)), seed=0)
     port = DVGModel(cfg, device="cpu")
     port.load_state_dict(params_from_jax(params, stats, cfg))
+    folded = port.fold_inference_params()
     w, b = cfg.image_width, cfg.batch_size
     rng = np.random.RandomState(1)
     x = rng.rand(b, w, w, 3).astype(np.float32)
     with torch.no_grad():
-        shapes = [tuple(s.shape[1:]) for s in port.encode(
+        shapes = [tuple(s.shape[1:]) for s in folded.encode(
             torch.from_numpy(x))[1]]
     # the grouped decode's skips: 2 unique frames, leaky-ReLU-like maps
     skips_u = [np.maximum(rng.randn(2, b, *sh), -0.2).astype(np.float32)
@@ -143,14 +146,15 @@ def net(request):
 
     ref = jax.tree.map(np.asarray, reference(params, stats, x, lat, skips_u))
     return dict(name=request.param, cfg=cfg, jcfg=JaxConfig(**kw),
-                params=params, stats=stats, port=port, x=x, lat=lat,
+                params=params, stats=stats, port=port, folded=folded, x=x,
+                lat=lat,
                 skips_u=skips_u, ref=ref)
 
 
 def test_registry_builds_every_backbone():
     """Both models at both widths build through the registry; their
-    encoder maps a frame to g_dim and gives the JAX registry's number of
-    skips."""
+    folded encoder maps a frame to g_dim and gives the JAX registry's
+    number of skips."""
     for model in ("dcgan", "vgg"):
         for width in (64, 128):
             cfg = DVGConfig(**dict(TINY, model=model, image_width=width))
@@ -158,17 +162,21 @@ def test_registry_builds_every_backbone():
             backbone = get_backbone(model, width)
             assert isinstance(port.encoder, backbone.encoder.func)
             assert isinstance(port.decoder, backbone.decoder.func)
-            h, skips = port.encode(torch.zeros(1, width, width, 3))
+            with torch.no_grad():
+                h, skips = port.fold_inference_params().encode(
+                    torch.zeros(1, width, width, 3))
             assert h.shape == (1, cfg.g_dim)
             assert len(skips) == JaxModel(JaxConfig(**dict(
                 TINY, model=model, image_width=width))).backbone.num_skips
 
 
 def test_eval_forward_matches_jax(net):
-    port, ref = net["port"], net["ref"]
+    """The folded encode and fused decode against dvg_tpu's eval forward on
+    the unfolded weights."""
+    folded, ref = net["folded"], net["ref"]
     with torch.no_grad():
-        h, skips = port.encode(torch.from_numpy(net["x"]))
-        y = port.decode(h, skips)
+        h, skips = folded.encode(torch.from_numpy(net["x"]))
+        y = folded.decode(h, skips)
     np.testing.assert_allclose(_np(h), ref["h"], atol=ATOL)
     assert len(skips) == len(ref["skips"])
     for s, s_ref in zip(skips, ref["skips"]):
@@ -183,9 +191,8 @@ def test_eval_forward_matches_jax(net):
 def test_hoisted_decode_matches_jax(net):
     """The folded encode, the frozen-skip halves and the hoisted decode
     against the JAX package's; on a merged 3-sample latent with the pre
-    tiled once, the hoisted decode equals the port's fused decode."""
-    port, ref = net["port"], net["ref"]
-    folded = port.fold_inference_params()
+    tiled once, the hoisted decode equals the folded fused decode."""
+    folded, ref = net["folded"], net["ref"]
     with torch.no_grad():
         h, skips = folded.encode(torch.from_numpy(net["x"]))
         pre = folded.decode_skip_pre(skips)
@@ -199,7 +206,7 @@ def test_hoisted_decode_matches_jax(net):
         for k in range(3):
             np.testing.assert_allclose(
                 _np(y_m[2 * k:2 * k + 2]),
-                _np(port.decode(h * (1 + 0.1 * k), skips)), atol=ATOL)
+                _np(folded.decode(h * (1 + 0.1 * k), skips)), atol=ATOL)
 
 
 def test_folded_fused_decode_matches_jax(net):
@@ -207,8 +214,7 @@ def test_folded_fused_decode_matches_jax(net):
     call and each up half a folded transposed conv) against the JAX
     package's fused decode, and the folded encode without skips gives the
     same h."""
-    port, ref = net["port"], net["ref"]
-    folded = port.fold_inference_params()
+    folded, ref = net["folded"], net["ref"]
     with torch.no_grad():
         x = torch.from_numpy(net["x"])
         h, skips = folded.encode(x)

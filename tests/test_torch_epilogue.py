@@ -142,7 +142,7 @@ def _old_dcgan_decode(dec, vec, skips):
         d = _old_block(stage, torch.cat([d, L.nchw(skip)], dim=1),
                        "leaky_relu")
     out = dec.final(torch.cat([d, L.nchw(skips[0])], dim=1))
-    return L.nhwc(dec.final_act(out))
+    return L.nhwc(OLD_ACT[dec.final_act](out))
 
 
 def _old_dcgan_hoisted(dec, vec, skip_pre):
@@ -153,7 +153,8 @@ def _old_dcgan_hoisted(dec, vec, skip_pre):
         d = L.leaky_relu(y + L.nchw(pre) + b[:, None, None])
     w, b = weights[-1]
     y = F.conv_transpose2d(d, w[:d.shape[1]], None, 2, 1)
-    return L.nhwc(dec.final_act(y + L.nchw(skip_pre[-1]) + b[:, None, None]))
+    return L.nhwc(OLD_ACT[dec.final_act](y + L.nchw(skip_pre[-1])
+                                         + b[:, None, None]))
 
 
 BACKBONES = {"vgg128": (vgg, 128, _old_vgg_encode, _old_vgg_decode,

@@ -17,6 +17,7 @@ from dvg_tpu_torch.convert import (conv_transpose_weight, conv_weight,
                                    params_from_jax)
 from dvg_tpu_torch.models import layers as L
 from dvg_tpu_torch.models.dvg import DVGModel
+from dvg_tpu_torch.models.vgg import GaussianEncoder
 
 ATOL = 1e-5
 TINY = dict(channels=3, image_width=64, batch_size=2, n_past=2, n_eval=17,
@@ -57,6 +58,12 @@ def models():
     return jmodel, params, stats, port, x
 
 
+@pytest.fixture(scope="module")
+def folded(models):
+    """The port's model in its one eval form, BN folded into the convs."""
+    return models[3].fold_inference_params()
+
+
 @pytest.mark.parametrize("stride,padding,cin,hw", [(2, 1, 3, 16),
                                                    (1, 0, 32, 4)])
 def test_conv2d(stride, padding, cin, hw):
@@ -93,7 +100,8 @@ def test_conv_transpose2d(stride, padding, hw):
 def test_fold_conv_bn(models, kind):
     """Folding scales the OUTPUT channels: dim 0 of a Conv2d weight, dim 1
     of a ConvTranspose2d weight. Folded weights, bias and outputs agree
-    with the JAX fold, and folded == conv→BN."""
+    with the JAX fold, and folded == the JAX conv→BN; the unfolded block
+    refuses the eval forward."""
     jmodel, params, stats, port, x = models
     if kind == "conv":
         jp, js = params["encoder"]["stages"][1], stats["encoder"]["stages"][1]
@@ -117,37 +125,44 @@ def test_fold_conv_bn(models, kind):
     xt = L.nchw(torch.from_numpy(xin))
     ref = np.asarray(j_apply(jf, js, jnp.asarray(xin)))
     np.testing.assert_allclose(_np(L.nhwc(folded(xt))), ref, atol=ATOL)
-    np.testing.assert_allclose(_np(L.nhwc(block(xt))), ref, atol=ATOL)
+    np.testing.assert_allclose(
+        _np(L.nhwc(folded(xt))),
+        np.asarray(j_apply(jp, js, jnp.asarray(xin))), atol=ATOL)
+    with pytest.raises(ValueError, match="BN-folded"):
+        block(xt)
 
 
-def test_encoder(models):
+def test_encoder(models, folded):
+    """The folded encode against dvg_tpu's eval encode on the unfolded
+    weights."""
     jmodel, params, stats, port, x = models
     (h_ref, skips_ref), _ = jmodel.encode(params, stats, jnp.asarray(x),
                                           train=False)
-    h, skips = port.encode(torch.from_numpy(x))
+    h, skips = folded.encode(torch.from_numpy(x))
     np.testing.assert_allclose(_np(h), np.asarray(h_ref), atol=ATOL)
     assert len(skips) == len(skips_ref) == 4
     for s, s_ref in zip(skips, skips_ref):
         np.testing.assert_allclose(_np(s), np.asarray(s_ref), atol=ATOL)
 
 
-def test_decoder_fused(models):
+def test_decoder_fused(models, folded):
+    """The folded fused decode against dvg_tpu's eval decode on the
+    unfolded weights."""
     jmodel, params, stats, port, x = models
     (h, skips), _ = jmodel.encode(params, stats, jnp.asarray(x), train=False)
     y_ref, _ = jmodel.decode(params, stats, h, skips, train=False)
-    y = port.decode(torch.from_numpy(np.array(h)),
+    y = folded.decode(torch.from_numpy(np.array(h)),
                     [torch.from_numpy(np.array(s)) for s in skips])
     assert y.shape == (2, 64, 64, 3)
     np.testing.assert_allclose(_np(y), np.asarray(y_ref), atol=ATOL)
 
 
-def test_decoder_skip_pre_and_hoisted(models):
+def test_decoder_skip_pre_and_hoisted(models, folded):
     jmodel, params, stats, port, x = models
     jf = jmodel.fold_inference_params(params, stats)
     (h, skips), _ = jmodel.encode(jf, stats, jnp.asarray(x), train=False)
     pre_ref = jmodel.decode_skip_pre(jf, skips)
     y_ref = jmodel.decode_hoisted(jf, h, pre_ref)
-    folded = port.fold_inference_params()
     h_t, skips_t = folded.encode(torch.from_numpy(x))
     np.testing.assert_allclose(_np(h_t), np.asarray(h), atol=ATOL)
     pre = folded.decode_skip_pre(skips_t)
@@ -158,26 +173,36 @@ def test_decoder_skip_pre_and_hoisted(models):
     np.testing.assert_allclose(_np(y), np.asarray(y_ref), atol=ATOL)
 
 
-def test_hoisted_matches_fused(models):
-    """decode_hoisted(decode_skip_pre(...)) on folded weights reproduces the
-    fused eval decode, also on a merged sample·batch latent with the pre
-    tiled once; unfolded weights and an untiled pre are refused."""
+def test_hoisted_matches_fused(models, folded):
+    """decode_hoisted(decode_skip_pre(...)) on folded weights reproduces
+    dvg_tpu's fused eval decode on the unfolded weights, and the folded
+    fused decode on a merged sample·batch latent with the pre tiled once;
+    an untiled pre is refused, and so is every eval forward of a model
+    that was never folded: encode, decode, decode_hoisted and the Gaussian
+    encoder's."""
     jmodel, params, stats, port, x = models
-    h, skips = port.encode(torch.from_numpy(x))
-    y_ref = port.decode(h, skips)
-    folded = port.fold_inference_params()
-    with pytest.raises(ValueError, match="BN-folded"):
-        port.decode_hoisted(h, port.decode_skip_pre(skips))
+    (h_j, skips_j), _ = jmodel.encode(params, stats, jnp.asarray(x),
+                                      train=False)
+    y_ref, _ = jmodel.decode(params, stats, h_j, skips_j, train=False)
+    xt = torch.from_numpy(x)
+    h, skips = folded.encode(xt)
+    for refused in (lambda: port.encode(xt), lambda: port.decode(h, skips),
+                    lambda: port.decode_hoisted(h,
+                                                port.decode_skip_pre(skips)),
+                    lambda: GaussianEncoder(TINY["g_dim"], 8, nc=3)(
+                        xt, torch.zeros(2, 8))):
+        with pytest.raises(ValueError, match="BN-folded"):
+            refused()
     pre = folded.decode_skip_pre(skips)
     np.testing.assert_allclose(_np(folded.decode_hoisted(h, pre)),
-                               _np(y_ref), atol=ATOL)
+                               np.asarray(y_ref), atol=ATOL)
     s_n = 3
     h_m = torch.cat([h * (1 + 0.1 * k) for k in range(s_n)])
     with pytest.raises(ValueError, match="tile the pre"):
         folded.decode_hoisted(h_m, pre)
     y_m = folded.decode_hoisted(h_m, [p.repeat(s_n, 1, 1, 1) for p in pre])
     for k in range(s_n):
-        ref_k = port.decode(h * (1 + 0.1 * k), skips)
+        ref_k = folded.decode(h * (1 + 0.1 * k), skips)
         np.testing.assert_allclose(_np(y_m[k * 2:(k + 1) * 2]), _np(ref_k),
                                    atol=ATOL)
 

@@ -5,7 +5,8 @@
 `convert.predictor_from_jax`, `gaussian_encoder_from_jax` and
 `classifier_from_jax`), f32, atol 1e-5. The Gaussian heads take the eps
 `dvg_tpu` draws from its rng; BatchNorm runs on random running
-statistics in eval mode and on the batch's in train mode (no dropout,
+statistics in eval mode (the port's Gaussian encoder folds them into its
+trunk's convs first) and on the batch's in train mode (no dropout,
 as `dvg_tpu` drops out only with an rng); the train-mode Gaussian
 encoder's skips at 5e-5 (TRAIN_SKIP_ATOL). Dropout draws only from the
 generator it is given."""
@@ -107,6 +108,8 @@ def test_gaussian_encoder(train):
         params, stats, jnp.asarray(x), train, rng)
     eps = torch.from_numpy(np.array(
         jax.random.normal(rng, jmu.shape, jmu.dtype)))
+    if not train:           # the eval forward runs on the folded trunk
+        port.fold_()
     with torch.no_grad():
         fwd = port.train_forward if train else port
         pz, pmu, plv, pskips = fwd(torch.from_numpy(x), eps)[:4]
