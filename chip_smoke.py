@@ -30,6 +30,15 @@ Phases, each failing the run (non-zero exit, no result line) on a mismatch:
      transposed convs of the small maps, 800 frames, bf16 channels_last,
      cuDNN autotuned) against the nearest upsample + 3×3 conv each
      replaces: µs of each, the output's layout, the largest difference;
+  3d. [k4] K4 (csrc/bn_act.cu, train-mode BatchNorm and its activation) at
+     the DCGAN-64 train cell's maps in bf16 and f32: statistics against
+     the plain chain's, the apply bitwise given them, the backward against
+     the plain formula; each of its four kernels timed beside its byte
+     bound, the forward and forward + backward beside the plain chain and
+     F.batch_norm(training=True) + the activation (a yardstick only); then
+     the train cell's step at B 100: K4's 46 launches a step (gated, by
+     the counter and in a profiled step), ms a step, peak memory, device
+     time by group;
   4. checkpoint: writes the headline DCGAN-64 model from seeded weights in
      the dvg_tpu format and reads it back, every leaf equal; the later
      phases load their model from this file;
@@ -283,6 +292,20 @@ K3_PER_PASS = {("dcgan", 64): 5, ("dcgan", 128): 6, ("vgg", 64): 11,
 POOL_PER_ENCODE = {("vgg", 64): 4, ("vgg", 128): 5}
 # VGG-128's eval at 800 frames: the pooled map K3's pooled form is timed on
 POOL_SHAPE = (800, 64, 128, 128)
+# K4 at the DCGAN-64 train cell's maps (B 100): (shape, calls) of the
+# encode's first stage (15 frames), the grouped decode's last stage (42
+# calls), the 90-channel encoder head and the decoder head
+K4_SHAPES = (((1500, 64, 32, 32), 15), ((4200, 64, 32, 32), 42),
+             ((1500, 90, 1, 1), 15), ((4200, 512, 4, 4), 42))
+# the train cell's step (benchmark/configs/dcgan64_smmnist.json, traffic
+# train): 14 BN forwards (5 joint encode, 4 grouped decode, 5 finetune
+# encode) and 9 backwards, two launches each
+K4_STEP = dict(channels=1, image_width=64, g_dim=90, rnn_size=256,
+               predictor_rnn_layers=2, num_inducing_points=40, n_past=5,
+               n_future=10, batch_size=100, epoch_size=300, ft=True,
+               dtype="bfloat16")
+K4_PER_STEP = 46
+K4_STEPS = 10             # steps timed by events after the counted one
 
 # [import]: reference-schema .pth files of each backbone at a tiny width
 # and of DCGAN-64 at the bench's (BAIR: C 3, n_past 2), the BAIR data
@@ -502,6 +525,12 @@ def kernel_label(mangled: str) -> str:
     if m is not None:
         return (f"epilogue pool {'f32' if m.group(1) == 'f' else 'bf16'} "
                 f"act {m.group(2)} vec {m.group(3)}")
+    m = re.search(r"dvg_elementwise_bn_(stats|apply|bwd_sums|bwd)I"
+                  r"(13__nv_bfloat16|f|d)(?:Li(\d)E)?Lb([01])E", mangled)
+    if m is not None:
+        dtype = {"f": "f32", "d": "f64"}.get(m.group(2), "bf16")
+        act = f" act {m.group(3)}" if m.group(3) else ""
+        return f"bn {m.group(1)} {dtype}{act} vec {m.group(4)}"
     m = re.search(r"ssim_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", mangled)
     if m is None:
         return mangled
@@ -797,6 +826,178 @@ def phase_resample() -> dict:
     print(f"[resample] five up halves: folded {f_all * 1e3:.1f} us, upsample "
           f"+ conv {o_all * 1e3:.1f} us a free step ({CARD_LINE})")
     return out
+
+
+def _k4_rel(got, want) -> float:
+    """max |got − want| over max |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def phase_k4(resources) -> dict:
+    """K4 (csrc/bn_act.cu, train-mode BatchNorm and its activation) at
+    K4_SHAPES in bf16 and f32: its statistics against the plain chain's
+    (rtol 1e-5), the apply bitwise given the plain statistics (tanh within
+    a bf16 ulp), the backward against the plain formula on its own
+    statistics; each kernel timed beside its byte bound (each map read or
+    written once: stats reads y, apply y and out, the sums y and g, dy y,
+    g and dy; tanh reads out too), the forward and forward + backward of
+    the operator, of the plain chain and, as a yardstick only,
+    F.batch_norm(training=True) + the activation over the whole map. Then
+    the train cell's step (K4_STEP): K4's launches in one step
+    (K4_PER_STEP), ms a step by events, peak memory, device time by group
+    and K4's device launches in one profiled step."""
+    import torch
+    import torch.nn.functional as F
+    from dvg_tpu_torch.config import DVGConfig
+    from dvg_tpu_torch.ops import batchnorm as BN
+    from dvg_tpu_torch.train import init_train_state, make_train_step
+    dev = torch.device(CARD)
+    cl = torch.channels_last
+    g = torch.Generator(device=dev).manual_seed(19)
+    result = None
+    for shape, calls in K4_SHAPES:
+        act = "tanh" if shape[1] == 90 else "leaky_relu"
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"[k4 {shape[1]}ch {str(dtype)[6:]}]"
+            y = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(
+                dtype).contiguous(memory_format=cl)
+            w = (1 + 0.3 * torch.randn(shape[1], generator=g,
+                                       device=dev)).to(dtype)
+            b = (0.2 * torch.randn(shape[1], generator=g,
+                                   device=dev)).to(dtype)
+            gr = torch.randn(shape, generator=g, device=dev).to(
+                dtype).contiguous(memory_format=cl)
+            plain_out, plain = BN.bn_plain(y, w, b, calls)
+            plain_out = BN.activate(plain_out, act)
+            stats = BN.launch_stats(y, w, calls)
+            s_err = max(_k4_rel(stats[i], plain[i]) for i in range(4))
+            got = BN.launch_apply(y, plain[0].contiguous(),
+                                  plain[2].contiguous(), b, calls, act)
+            exact = torch.equal(got, plain_out)
+            a_err = (got.double() - plain_out.double()).abs().max().item()
+            ulp = ((got.double() - plain_out.double()).abs()
+                   / (2.0 ** -7 * plain_out.double().abs()).clamp(
+                       min=1e-38)).max().item()
+            out = BN.launch_apply(y, stats[0], stats[2], b, calls, act)
+            o = out if act == "tanh" else None
+            sums, dg, db = BN.launch_bwd_sums(gr, y, o, stats, b, calls, act)
+            dy = BN.launch_bwd(gr, y, o, stats, b, sums, calls, act)
+            want = BN.bn_act_backward_plain(gr, y, o, stats, b, calls, act)
+            g_err = max(_k4_rel(k, r) for k, r in zip((dy, dg, db), want))
+            torch.cuda.synchronize()
+            print(f"{tag} {tuple(shape)} in {calls} calls, {act}: stats max "
+                  f"rel {s_err:.2e}; apply given the plain stats bitwise "
+                  f"{exact} (max|d| {a_err:.2e}, {ulp:.2f} of 2^-7 "
+                  f"relative); dy, dgamma, dbeta max rel {g_err:.2e}")
+            g_tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            check(s_err <= 1e-5, f"K4 statistics {shape} {dtype}: {s_err}")
+            check(exact if act == "leaky_relu" else ulp <= 1,
+                  f"K4 apply {shape} {dtype} disagrees with plain")
+            check(g_err <= g_tol, f"K4 backward {shape} {dtype}: {g_err}")
+            del plain_out, plain, got, want
+
+            ms = dict(
+                stats=cuda_ms(lambda: BN.launch_stats(y, w, calls), 20),
+                apply=cuda_ms(lambda: BN.launch_apply(
+                    y, stats[0], stats[2], b, calls, act), 20),
+                sums=cuda_ms(lambda: BN.launch_bwd_sums(
+                    gr, y, o, stats, b, calls, act), 20),
+                dy=cuda_ms(lambda: BN.launch_bwd(
+                    gr, y, o, stats, b, sums, calls, act), 20))
+            n = y.numel() * y.element_size()
+            t = int(act == "tanh")
+            nbytes = dict(stats=n, apply=2 * n, sums=(2 + t) * n,
+                          dy=(3 + t) * n)
+            for k in ms:
+                b_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+                print(f"{tag} {k}: {ms[k] * 1e3:.1f} us/launch  bound "
+                      f"{b_ms * 1e3:.1f} us by bytes ({nbytes[k] / 1e9:.3f} "
+                      f"GB)  = {b_ms / ms[k]:.1%} of bound")
+            yl, wl, bl = (v.detach().requires_grad_() for v in (y, w, b))
+            lw, lb = ((wl, bl) if dtype == torch.float32 else
+                      (wl.float().detach().requires_grad_(),
+                       bl.float().detach().requires_grad_()))
+
+            def fwd_bwd(fn, leaves):
+                return lambda: torch.autograd.grad(fn(), leaves, gr)
+
+            def k4():
+                return BN.bn_act(yl, wl, bl, calls, act)[0]
+
+            def stock():
+                return BN.bn_act_plain(yl, wl, bl, calls, act)[0]
+
+            def library():
+                return BN.activate(F.batch_norm(yl, None, None, lw, lb,
+                                                training=True), act)
+            with torch.no_grad():
+                f_ms = [cuda_ms(fn, reps) for fn, reps in
+                        ((k4, 20), (stock, 3), (library, 20))]
+            fb_ms = [cuda_ms(fwd_bwd(fn, leaves), reps) for fn, leaves, reps
+                     in ((k4, (yl, wl, bl), 10), (stock, (yl, wl, bl), 3),
+                         (library, (yl, lw, lb), 10))]
+            fwd_bound = (nbytes["stats"] + nbytes["apply"]) / HBM_BYTES_PER_S
+            bwd_bound = (nbytes["sums"] + nbytes["dy"]) / HBM_BYTES_PER_S
+            print(f"{tag} forward: K4 {f_ms[0] * 1e3:.1f} us (bound "
+                  f"{fwd_bound * 1e6:.1f}), plain {f_ms[1] * 1e3:.1f} us, "
+                  f"F.batch_norm + act {f_ms[2] * 1e3:.1f} us; forward + "
+                  f"backward: K4 {fb_ms[0] * 1e3:.1f} us (bound "
+                  f"{(fwd_bound + bwd_bound) * 1e6:.1f}), plain "
+                  f"{fb_ms[1] * 1e3:.1f} us, F.batch_norm + act "
+                  f"{fb_ms[2] * 1e3:.1f} us")
+            if result is None:
+                result = dict(ms=f_ms[0], plain_ms=f_ms[1],
+                              bound_ms=fwd_bound * 1e3, bound_by="bytes",
+                              library_ms=f_ms[2], max_abs_err=g_err,
+                              passes={k: (ms[k], nbytes[k] / HBM_BYTES_PER_S
+                                          * 1e3) for k in ms})
+            del y, gr, yl, stats, out, sums, dy
+            torch.cuda.empty_cache()
+    for entry, lines in resources.items():
+        if entry.startswith("bn "):
+            print(f"[k4] ptxas {entry}: {'; '.join(lines)}")
+
+    torch.backends.cudnn.benchmark = True
+    cfg = DVGConfig(**K4_STEP)
+    state = init_train_state(cfg, device=CARD)
+    step = make_train_step(cfg)
+    x = torch.rand((cfg.seq_len_train, cfg.batch_size, 64, 64, 1),
+                   generator=g, device=dev)
+    step(state, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = BN.bn_act.launches
+    step(state, x)
+    torch.cuda.synchronize()
+    launches = BN.bn_act.launches - before
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(K4_STEPS):
+        step(state, x)
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / K4_STEPS
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / K4_STEPS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kernels, busy, span = device_kernels(lambda: step(state, x))
+    traced = sum("dvg_elementwise_bn" in e.name for e in kernels)
+    print(f"[k4 step] DCGAN-64 C 1 B {cfg.batch_size} bf16 ft: K4 launches "
+          f"{launches} a step (traced {traced}); {step_ms:.2f} ms/step by "
+          f"events over {K4_STEPS} steps ({cfg.batch_size * 1e3 / step_ms:.1f}"
+          f" clips/s; the host issues a step in {host_ms:.2f} ms); peak {peak:.2f} GB; profiled step: {len(kernels)} "
+          f"kernels, device busy {busy:.1f} ms of a {span:.1f} ms span "
+          f"({CARD_LINE})")
+    print_kernel_groups("[k4 step]", kernels, busy, TRAIN_GROUPS)
+    check(launches == traced == K4_PER_STEP,
+          f"K4 launched {launches} times a step ({traced} traced), not "
+          f"{K4_PER_STEP}")
+    del state, step, x
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    return dict(result, launches=launches, step_ms=step_ms)
 
 
 def k3_per_call(cfg) -> int:
@@ -3464,6 +3665,7 @@ def main() -> int:
         k2 = timed("k2", phase_k2, resources)
         k3 = timed("k3", phase_k3, resources)
         timed("resample", phase_resample)
+        k4 = timed("k4", phase_k4, resources)
         with tempfile.TemporaryDirectory(prefix="dvg_smoke_") as tmp:
             ckpt = timed("ckpt", phase_checkpoint, tmp)
             timed("tiny", phase_tiny)
@@ -3525,6 +3727,11 @@ def main() -> int:
                         replaces=None, library_ms=None, backbone_launches={
                             name: r["k3"] for name, r in full.items()},
                         **k3))
+    # K4 replaces no Pallas kernel: XLA fused train-mode BatchNorm and its
+    # activation; its launches: per step of the train cell
+    kernels.append(dict(name="bn_act", route="cuda",
+                        source="dvg_tpu_torch/csrc/bn_act.cu", replaces=None,
+                        **k4))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

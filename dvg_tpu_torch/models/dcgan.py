@@ -100,13 +100,11 @@ class Encoder(nn.Module):
         h = L.nchw(L.cast(x, dtype))
         skips, stats = [], []
         for stage in self.stages:
-            y, st = stage.train_forward(h, calls, dtype, group)
-            h = L.leaky_relu(y)
+            h, st = stage.train_forward(h, calls, "leaky_relu", dtype, group)
             skips.append(L.nhwc(h))
             stats.append(st)
-        y, st = self.head.train_forward(h, calls, dtype, group)
+        h, st = self.head.train_forward(h, calls, "tanh", dtype, group)
         stats.append(st)
-        h = torch.tanh(y)
         return h.reshape(h.shape[0], -1), skips, stats
 
     def bn_blocks(self) -> List[L.ConvBlock]:
@@ -179,14 +177,12 @@ class Decoder(nn.Module):
                     + L.cast(conv.bias, dtype)[:, None, None])
 
         d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
-        y, st = self.head.train_forward(d, n, dtype, group)
-        d = L.leaky_relu(y)
+        d, st = self.head.train_forward(d, n, "leaky_relu", dtype, group)
         stats = [st]
         for stage, sk in zip(self.stages, reversed(skips_u)):
-            y, st = L.batch_norm_train(
+            d, st = L.batch_norm_act(
                 split_conv_t(stage.conv, d, sk), L.cast(stage.bn.weight, dtype),
-                L.cast(stage.bn.bias, dtype), n, group=group)
-            d = L.leaky_relu(y)
+                L.cast(stage.bn.bias, dtype), n, "leaky_relu", group)
             stats.append(st)
         y = split_conv_t(self.final, d, skips_u[0])
         y = activate(y, self.final_act)

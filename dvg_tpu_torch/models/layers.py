@@ -1,4 +1,5 @@
 """Layer pieces of the port: conv blocks with train-mode BatchNorm and
+its activation (`batch_norm_act`: `ops/batchnorm.py`, K4 on the card) and
 its fold into the conv, the torch-style transposed conv, LeakyReLU 0.2, the
 VGG backbone's 2×2 max-pool and nearest ×2 upsample, and the init law. The
 eval form of a block is its BN-folded one (`fold_conv_bn`): the conv runs
@@ -28,8 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, conv_epilogue,
-                                         conv_epilogue_pool)
+from dvg_tpu_torch.ops import batchnorm as BN
+from dvg_tpu_torch.ops.epilogue import (NEGATIVE_SLOPE, activate,
+                                         conv_epilogue, conv_epilogue_pool)
 from dvg_tpu_torch.parallel.collectives import all_reduce_sum, world_size
 
 WEIGHT_STD = 0.02
@@ -119,34 +121,51 @@ def skip_epilogue(y: torch.Tensor, bias: torch.Tensor, pre: torch.Tensor,
 def batch_norm_train(y: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, calls: int, eps: float = BN_EPS,
                      group=None) -> Tuple[torch.Tensor, BNStats]:
-    """Train-mode BatchNorm with per-call statistics: y (calls·b, C, H, W)
-    holds `calls` batches of b, each normalized over its own (b, H, W) by
-    its biased variance. The statistics and the affine run in at least f32
-    and the output comes back in y's dtype, as `dvg_tpu`'s batchnorm_apply.
-    Returns (out, (batch mean, unbiased variance)), both (calls, C),
-    detached, for the running-statistics fold; the buffers are left alone.
+    """Train-mode BatchNorm with per-call statistics, in stock ops: y
+    (calls·b, C, H, W) holds `calls` batches of b, each normalized over its
+    own (b, H, W) by its biased variance. The statistics and the affine run
+    in at least f32 and the output comes back in y's dtype, as `dvg_tpu`'s
+    batchnorm_apply. Returns (out, (batch mean, unbiased variance)), both
+    (calls, C), detached, for the running-statistics fold; the buffers are
+    left alone. Without a group it is `ops.batchnorm.bn_plain`.
 
     Under a process `group` (data parallel, every rank holding b rows of
     each call) the statistics are the global batch's, in `dvg_tpu`'s
     two-pass form: the mean all-reduced, then the mean of (y − μ)²
     all-reduced, the unbiased count the global one. Both reductions are
     differentiable all-reduces, so the backward is the global-batch BN's."""
+    if group is None:
+        out, stats = BN.bn_plain(y, weight, bias, calls, eps)
+        return out, (stats[0].detach(), stats[3].detach())
     at = acc_dtype(y.dtype)
     y5 = y.unflatten(0, (calls, y.shape[0] // calls)).to(at)
-    n = y5.shape[1] * y5.shape[3] * y5.shape[4]
-    if group is None:
-        var, mean = torch.var_mean(y5, dim=(1, 3, 4), correction=0)
-    else:
-        w = world_size(group)
-        mean = all_reduce_sum(y5.mean(dim=(1, 3, 4)), group) / w
-        var = all_reduce_sum(((y5 - mean[:, None, :, None, None]) ** 2
-                              ).mean(dim=(1, 3, 4)), group) / w
-        n *= w
+    w = world_size(group)
+    n = y5.shape[1] * y5.shape[3] * y5.shape[4] * w
+    mean = all_reduce_sum(y5.mean(dim=(1, 3, 4)), group) / w
+    var = all_reduce_sum(((y5 - mean[:, None, :, None, None]) ** 2
+                          ).mean(dim=(1, 3, 4)), group) / w
     scale = torch.rsqrt(var + eps) * weight.to(at)
     out = ((y5 - mean[:, None, :, None, None]) * scale[:, None, :, None, None]
            + bias.to(at)[:, None, None])
     unbiased = var.detach() * (n / max(n - 1, 1))
     return out.to(y.dtype).flatten(0, 1), (mean.detach(), unbiased)
+
+
+def batch_norm_act(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   calls: int, act: str, group=None
+                   ) -> Tuple[torch.Tensor, BNStats]:
+    """`batch_norm_train` followed by the activation `act` ("leaky_relu" or
+    "tanh") → (out, per-call statistics). On one device it is one operator
+    (`ops.batchnorm.bn_act`: K4 on the card, whose kernels take y in
+    channels_last memory, a no-op for the train step's maps); under a
+    process `group` the global-batch composition, whose statistics are
+    all-reduces that no single-device kernel holds."""
+    if group is not None:
+        out, stats = batch_norm_train(y, weight, bias, calls, group=group)
+        return activate(out, act), stats
+    if y.is_cuda:
+        y = y.contiguous(memory_format=torch.channels_last)
+    return BN.bn_act(y, weight, bias, calls, act, BN_EPS)
 
 
 class ConvBlock(nn.Module):
@@ -181,16 +200,16 @@ class ConvBlock(nn.Module):
         return conv_epilogue_pool(
             y.contiguous(memory_format=torch.channels_last), conv.bias, act)
 
-    def train_forward(self, x: torch.Tensor, calls: int,
+    def train_forward(self, x: torch.Tensor, calls: int, act: str,
                       dtype: Optional[torch.dtype] = None, group=None
                       ) -> Tuple[torch.Tensor, BNStats]:
-        """Conv, then train-mode BN over each of the `calls` batches of x,
-        every weight cast to `dtype` → (y, per-call statistics), global
-        over `group`'s ranks under one."""
-        return batch_norm_train(conv_apply(self.conv, x, dtype),
-                                cast(self.bn.weight, dtype),
-                                cast(self.bn.bias, dtype), calls,
-                                group=group)
+        """Conv, then train-mode BN over each of the `calls` batches of x and
+        the activation `act` (`batch_norm_act`), every weight cast to
+        `dtype` → (out, per-call statistics), global over `group`'s ranks
+        under one."""
+        return batch_norm_act(conv_apply(self.conv, x, dtype),
+                              cast(self.bn.weight, dtype),
+                              cast(self.bn.bias, dtype), calls, act, group)
 
 
 def conv_block(in_ch: int, out_ch: int, k: int, stride: int,

@@ -119,8 +119,7 @@ def _blocks_eval(blocks, h: torch.Tensor) -> torch.Tensor:
 def _blocks_train(blocks, h: torch.Tensor, calls: int, dtype,
                   stats: List[L.BNStats], group=None) -> torch.Tensor:
     for block in blocks:
-        y, st = block.train_forward(h, calls, dtype, group)
-        h = L.leaky_relu(y)
+        h, st = block.train_forward(h, calls, "leaky_relu", dtype, group)
         stats.append(st)
     return h
 
@@ -166,9 +165,9 @@ class Encoder(nn.Module):
             h = _blocks_train(blocks, L.max_pool2d(h) if i else h, calls,
                               dtype, stats, group)
             skips.append(L.nhwc(h))
-        y, st = self.head.train_forward(L.max_pool2d(h), calls, dtype, group)
+        h, st = self.head.train_forward(L.max_pool2d(h), calls, "tanh", dtype,
+                                        group)
         stats.append(st)
-        h = torch.tanh(y)
         return h.reshape(h.shape[0], -1), skips, stats
 
     def bn_blocks(self) -> List[L.ConvBlock]:
@@ -227,8 +226,7 @@ class Decoder(nn.Module):
         of `bn_blocks()`)."""
         n, b = vecs.shape[0], vecs.shape[1]
         d = L.cast(vecs, dtype).reshape(n * b, -1, 1, 1)
-        y, st = self.head.train_forward(d, n, dtype, group)
-        d = L.leaky_relu(y)
+        d, st = self.head.train_forward(d, n, "leaky_relu", dtype, group)
         stats = [st]
         for blocks, sk in zip(self.groups, reversed(skips_u)):
             up = L.upsample_nearest2d(d)
@@ -241,10 +239,9 @@ class Decoder(nn.Module):
             y = (F.conv2d(up, w[:, :c_u], None, 1, 1)
                  + L.nchw(s_b.flatten(0, 1))
                  + L.cast(first.conv.bias, dtype)[:, None, None])
-            y, st = L.batch_norm_train(y, L.cast(first.bn.weight, dtype),
-                                       L.cast(first.bn.bias, dtype), n,
-                                       group=group)
-            d = L.leaky_relu(y)
+            d, st = L.batch_norm_act(y, L.cast(first.bn.weight, dtype),
+                                     L.cast(first.bn.bias, dtype), n,
+                                     "leaky_relu", group)
             stats.append(st)
             d = _blocks_train(blocks[1:], d, n, dtype, stats, group)
         y = L.conv_apply(self.final, d, dtype)

@@ -9,6 +9,10 @@ without one; the CPU parity of the same code is in the other
 tests/test_torch_*.py files. Tolerances as chip_smoke.py states them:
 K1 and K2 against plain SSIM atol 1e-4, PSNR atol 1e-3 dB, MSE rtol 1e-5;
 the tiny f32 slice card against CPU SSIM 1e-4, PSNR 1e-3 dB, MSE rtol 1e-4;
+K4 (train-mode BatchNorm and its activation) at the DCGAN-64 train cell's
+maps, statistics rtol 1e-5 of the plain chain's, the apply bitwise given
+them, gradients against the plain formula within a bf16 rounding (f32
+1e-5) of the largest;
 gp_trigger card against CPU equal masks, frames atol 1e-4, values rtol
 1e-4; the tiny train step on the card (f64 and f32) against the CPU's f64
 step as chip_smoke.py's `phase_train_tiny` holds it; a TrainState written
@@ -361,6 +365,129 @@ def test_folded_up_halves_come_out_channels_last(cuda):
         y = L.conv_apply(up, d, bias=False)
         assert y.shape == (8, up.out_channels, 2 * side, 2 * side)
         assert y.is_contiguous(memory_format=torch.channels_last), i
+
+
+# ---------------------------------------------------------------------------
+# K4: train-mode BatchNorm and its activation
+# ---------------------------------------------------------------------------
+
+# (shape, calls): the DCGAN-64 train cell's maps, B 100: the encode's first
+# stage (15 frames) and the grouped decode's last (42 calls), the 90-channel
+# encoder head (scalar path) and the decoder head
+BN_CASES = [((1500, 64, 32, 32), 15), ((4200, 64, 32, 32), 42),
+            ((1500, 90, 1, 1), 15), ((4200, 512, 4, 4), 42)]
+# statistics against the plain chain's on the card: a few f32 roundings
+# (both Welford, merged in other orders); gradients against the plain
+# formula on the kernels' own statistics, relative to the largest
+# |gradient|: f32 sums in other orders, and in bf16 one rounding
+BN_STATS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5,
+                 torch.float64: 1e-12}
+BN_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7,
+                torch.float64: 1e-12}
+
+
+def _bn_inputs(dev, shape, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev)
+    y = (randn(*shape) * 2 + 0.5).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    return (y, (1 + 0.3 * randn(shape[1])).to(dtype),
+            (0.2 * randn(shape[1])).to(dtype),
+            randn(*shape).to(dtype).contiguous(
+                memory_format=torch.channels_last))
+
+
+def _rel(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+def _bn_check(y, weight, bias, grad, calls, act):
+    """K4 against the plain versions on the card: the statistics to
+    BN_STATS_RTOL of the plain chain's; the apply bitwise given the plain
+    statistics (tanh within K3's allowance); the operator's output the
+    apply of its own statistics, its backward the plain formula's on them
+    (BN_GRAD_RTOL); four launches, dy channels_last."""
+    from dvg_tpu_torch.ops import batchnorm as BN
+    dtype = y.dtype
+    plain_out, plain = BN.bn_plain(y, weight, bias, calls)
+    stats = BN.launch_stats(y, weight, calls)
+    for i in range(4):
+        assert _rel(stats[i], plain[i]) <= BN_STATS_RTOL[dtype], (act, i)
+    _epilogue_close(
+        BN.launch_apply(y, plain[0].contiguous(), plain[2].contiguous(), bias,
+                        calls, act),
+        BN.activate(plain_out, act), "none" if act == "leaky_relu" else act)
+    leaves = [y.detach().requires_grad_()] + [
+        t.clone().requires_grad_() for t in (weight, bias)]
+    before = BN.bn_act.launches
+    out, (mean, var) = BN.bn_act(*leaves, calls, act)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    assert BN.bn_act.launches == before + 4
+    assert torch.equal(out, BN.launch_apply(y, stats[0], stats[2], bias,
+                                            calls, act))
+    assert torch.equal(mean, stats[0]) and torch.equal(var, stats[3])
+    want = BN.bn_act_backward_plain(grad, y, out.detach(), stats, bias,
+                                    calls, act)
+    for got, ref in zip((t.grad for t in leaves), want):
+        assert got.dtype == ref.dtype
+        assert _rel(got, ref) <= BN_GRAD_RTOL[dtype], act
+    assert leaves[0].grad.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,calls", BN_CASES)
+def test_bn_act_kernels_match_plain(cuda, shape, calls, dtype):
+    """`_bn_check` at the train cell's maps, both activations; the tickets
+    left at zero."""
+    from dvg_tpu_torch.ops import batchnorm as BN
+    y, weight, bias, grad = _bn_inputs(cuda, shape, dtype)
+    for act in BN.BN_ACTS:
+        _bn_check(y, weight, bias, grad, calls, act)
+    assert not BN._tickets[torch.cuda.current_device()].any()
+    torch.cuda.empty_cache()
+
+
+def test_bn_act_scalar_path_f64_checkpoint_and_refusals(cuda):
+    """Storage off a 16-byte boundary and C not a multiple of the vector
+    take the scalar path, f64 (the tiny f64 train step's) both; a rerun
+    under checkpoint gives the same gradients; no_grad launches the
+    forward alone; NCHW y and f16 are refused."""
+    from torch.utils.checkpoint import checkpoint
+    from dvg_tpu_torch.ops import batchnorm as BN
+    for dtype, shape in ((torch.bfloat16, (12, 16, 5, 6)),
+                         (torch.float32, (6, 90, 3, 3)),
+                         (torch.float64, (12, 16, 5, 6)),
+                         (torch.float64, (12, 16, 1, 1))):
+        y, weight, bias, grad = _bn_inputs(cuda, shape, dtype, seed=1)
+        if shape[2] > 1:
+            y = _misaligned(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            assert not BN._Launch(y, 3).vec
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        for act in BN.BN_ACTS:
+            _bn_check(y, weight, bias, grad, 3, act)
+    y, weight, bias, grad = _bn_inputs(cuda, (8, 16, 4, 4), torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (y, weight, bias)]
+    BN.bn_act(*leaves, 2, "leaky_relu")[0].backward(grad)
+    again = [t.clone().requires_grad_() for t in (y, weight, bias)]
+    before = BN.bn_act.launches
+    checkpoint(lambda *t: BN.bn_act(*t, 2, "leaky_relu")[0], *again,
+               use_reentrant=False).backward(grad)
+    assert BN.bn_act.launches == before + 6
+    for a, b in zip(again, leaves):
+        assert torch.equal(a.grad, b.grad)
+    before = BN.bn_act.launches
+    with torch.no_grad():
+        BN.bn_act(*leaves, 2, "tanh")
+    assert BN.bn_act.launches == before + 2
+    with pytest.raises(ValueError, match="channels_last"):
+        BN.bn_act(y.contiguous(), weight, bias, 2, "tanh")
+    with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
+        BN.bn_act(y.half(), weight.half(), bias.half(), 2, "tanh")
 
 
 # ---------------------------------------------------------------------------
